@@ -5,17 +5,32 @@
 
 Phases (each prints its lines; any failure exits nonzero):
   1. environment: nvidia-smi name and power limit, versions, device name;
-  2. build: nvcc builds pav_tpu_torch/csrc/*.cu, timed;
+  2. build: nvcc builds pav_tpu_torch/csrc/*.cu (one process per source),
+     timed;
   3. kernels: each CUDA kernel against its plain PyTorch version, bit for bit,
-     on CUDA tensors at the DP classes of the main path; the kernel's median
-     time and the plain version's time (one run, the compared one);
+     on CUDA tensors at the DP classes of the main path and, for the chain
+     scan, at 64 slabs x 4096 anchors; the kernel's median time and the plain
+     version's time (one run, the compared one). The chain scan also alone
+     at one slab of 2^20 anchors, beside the native host kernel it stands in
+     for. Then the batched density on CUDA against the same call on the CPU
+     (decision level);
   4. main path: a 16 Mbp reference and a diploid sample (the generator of
      bench.py, seed 11) from FASTA through ``python -m pav_tpu_torch
      --device cuda`` to a VCF; the full-width and traceback kernels must run;
   5. wavefront path: a 2 Mbp repeat-rich sample through the same CLI; the
      wavefront kernel must run;
   6. parity: the e2e test genome through the CLI on cuda and on cpu (plain
-     versions); identical VCF records.
+     versions); identical VCF records;
+  7. mesh: phase 4's h1 through ``Aligner.align_store`` unsharded and with
+     its DP sharded over the mesh [cuda:0, cuda:0]; equal tables, balanced
+     shards;
+  8. chain fallback: the same through ``Aligner.align_store`` with the
+     native chain kernel missing, so chaining runs the chain scan kernel on
+     the card; the table equals the native run's;
+  9. cohort: two 16 Mbp diploid samples on one reference through one CLI
+     process, then through a 2-process cohort (``--coordinator``,
+     ``--ship-artifacts``) on the one card; equal VCF records, kernels in
+     each process's profiler trace, and the samples-per-hour ratio.
 The line before last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and no network;
 imports no jax.
@@ -42,12 +57,18 @@ REPEAT_REF_LEN = 2_000_000     # phase 5 repeat-rich reference
 # max_n, width).
 FULL_SHAPES = [(4096, 16, 16), (512, 256, 256), (64, 2048, 2048), (16, 16, 32768)]
 WAVE_SHAPES = [(8, 8192, 8192, 513), (4, 8192, 8192, 2049)]
+CHAIN_SHAPE = (64, 4096)        # phase 3 chain scan parity: slabs x anchors
+CHAIN_LONG = 1 << 20            # phase 3 chain scan alone: one slab
+DENSITY_LONG = (4, 1 << 18)     # phase 3 density: regions x n_pad
+TRACE_KERNEL = 'dp_full_kernel'  # phase 9: must appear in each process's trace
 KERNELS = {
     # name: (source, TPU kernel replaced, LAUNCHES key)
     'dp_full': ('pav_tpu_torch/csrc/dp_full.cu', 'pav_tpu/ops/pallas_dp.py:62', 'full'),
     'dp_wave': ('pav_tpu_torch/csrc/dp_wave.cu', 'pav_tpu/ops/pallas_dp.py:227', 'wave'),
     'traceback': ('pav_tpu_torch/csrc/traceback.cu', 'pav_tpu/ops/affine_dp.py:767',
                   'traceback'),
+    'chain_scan': ('pav_tpu_torch/csrc/chain_scan.cu', 'pav_tpu/ops/chain_scan.py:20',
+                   'chain_scan'),
 }
 
 
@@ -80,6 +101,45 @@ def dp_inputs(B, max_m, max_n, seed):
     return q, r, m, n
 
 
+def chain_inputs(B, n, seed):
+    """int32 [B, n] anchor slabs like the aligner's: slab 0 full, the others
+    of ragged length in [n/2, n]; qpos ascending about 10 bp apart, rpos =
+    qpos + jitter in [-25, 25), group 0 then 1 (second half), padding
+    anchors zero with group -9."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((B, n), dtype=np.int32)
+    r = np.zeros((B, n), dtype=np.int32)
+    g = np.full((B, n), -9, dtype=np.int32)
+    for b in range(B):
+        ln = n if b == 0 else int(rng.integers(n // 2, n + 1))
+        qp = np.sort(rng.integers(0, 10 * ln, ln))
+        q[b, :ln] = qp
+        r[b, :ln] = qp + rng.integers(-25, 25, ln)
+        g[b, :ln] = np.arange(ln) >= ln // 2
+    return q, r, g
+
+
+def density_regions(count, lo, hi, seed):
+    """State-label regions in runs (FWD / FWDREV / REV, 5% noise) with
+    Scott sigmas at bandwidth factor 0.25; lengths in [lo, hi)."""
+    from pav_tpu_torch.ops import kde
+    rng = np.random.default_rng(seed)
+    regions, sigmas = [], []
+    for _ in range(count):
+        n = int(rng.integers(lo, hi))
+        st = np.zeros(n, dtype=np.int8)
+        pos = 0
+        while pos < n:
+            ln = int(rng.integers(50, max(51, n // 6)))
+            st[pos:pos + ln] = rng.choice(3, p=[0.5, 0.1, 0.4])
+            pos += ln
+        noise = rng.random(n) < 0.05
+        st[noise] = rng.integers(0, 3, int(noise.sum()))
+        regions.append(st)
+        sigmas.append(kde.scott_sigmas(st, 0.25))
+    return regions, sigmas
+
+
 def write_fasta(path, records):
     with open(path, 'wb') as fh:
         for name, codes in records.items():
@@ -89,11 +149,13 @@ def write_fasta(path, records):
                 fh.write(seq[i:i + 80] + b'\n')
 
 
-def bench_genome(ref_len, seed):
-    """The diploid sample of bench.py's build_genome (no cache)."""
+def bench_genome(ref_len, seed, hap_seeds=None):
+    """The diploid sample of bench.py's build_genome (no cache); haplotype
+    seeds default to bench.py's (seed + 1, seed + 2)."""
     from helpers import Mutator, random_seq
     rng = np.random.default_rng(seed)
     ref = random_seq(ref_len, rng)
+    s1, s2 = hap_seeds or (seed + 1, seed + 2)
 
     def make_hap(seed2, with_inv):
         rng2 = np.random.default_rng(seed2)
@@ -123,7 +185,7 @@ def bench_genome(ref_len, seed):
             pos = max(pos + int(rng2.integers(800, 1800)), mut.cursor + 200)
         return mut.finish()
 
-    return ref, make_hap(seed + 1, False), make_hap(seed + 2, True)
+    return ref, make_hap(s1, False), make_hap(s2, True)
 
 
 def repeat_genome(ref_len, seed):
@@ -268,6 +330,90 @@ def phase_kernels(dev):
     return stats
 
 
+def phase_chain_scan(dev, stats):
+    """The chain scan kernel against its plain version (bit for bit) at
+    CHAIN_SHAPE, and alone at one CHAIN_LONG slab beside native.chain_dp."""
+    import torch
+    from pav_tpu import native
+    from pav_tpu_torch.ops import chain_scan as C
+    args = (64, 19, 50000.0, 10000.0, 0.19)
+    B, n = CHAIN_SHAPE
+    q, r, g = (torch.from_numpy(a).to(dev) for a in chain_inputs(B, n, 700))
+    f, p = C._chain_scan_batch(q, r, g, *args)
+    C._chain_scan_ref(q[:1, :64], r[:1, :64], g[:1, :64], *args)   # warm-up
+    (f_ref, p_ref), pms = timed_ms(lambda: C._chain_scan_ref(q, r, g, *args))
+    if not (torch.equal(f, f_ref) and torch.equal(p, p_ref)):
+        fail(f'chain_scan differs from _chain_scan_ref at B={B} n={n}')
+    if not bool((p >= 0).any()):
+        fail('chain_scan chained no anchor')
+    ms = median_ms(lambda: C._chain_scan_batch(q, r, g, *args), 10)
+    err = float((f - f_ref).abs().max().item())
+    stats['chain_scan'].update(err=err, ms=ms, plain_ms=pms)
+    log(f'kernel chain_scan B={B} x {n} anchors: bit-identical, {ms:.3f} ms '
+        f'(plain {pms:.1f} ms, one run)')
+
+    ql, rl, gl = chain_inputs(1, CHAIN_LONG, 701)
+    ql_d, rl_d, gl_d = (torch.from_numpy(a).to(dev) for a in (ql, rl, gl))
+    ms_long = median_ms(lambda: C._chain_scan_batch(ql_d, rl_d, gl_d, *args), 3)
+    f_long, p_long = C._chain_scan_batch(ql_d, rl_d, gl_d, *args)
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        f_nat, p_nat = native.chain_dp(ql[0], rl[0], gl[0], 19, 64, 50000.0,
+                                       10000.0, 0.19)
+        host_s.append(time.perf_counter() - t0)
+    diff_f = int((f_long[0].cpu().numpy() != f_nat).sum())
+    diff_p = int((p_long[0].cpu().numpy().astype(np.int64) != p_nat).sum())
+    log(f'kernel chain_scan B=1 x {CHAIN_LONG} anchors: {ms_long:.2f} ms; '
+        f'native.chain_dp on the host {1e3 * float(np.median(host_s)):.2f} ms '
+        f'(median of 3); scores differing {diff_f}, parents differing {diff_p}')
+
+
+def phase_density(dev):
+    """smoothed_states_batch on CUDA against the same call on the CPU, at
+    the 16 regions of test_mesh_sharding.py and at DENSITY_LONG. States must
+    agree wherever the CPU's top two densities differ by more than 1e-4
+    relative; densities within rtol 1e-3 + 1e-5 of the largest (two float32
+    FFTs, cuFFT and pocketfft, round differently)."""
+    import torch
+    from pav_tpu_torch.ops import kde
+    cpu = torch.device('cpu')
+    cases = [('16 regions of 500-3000', *density_regions(16, 500, 3000, 31))]
+    count, n_pad = DENSITY_LONG
+    cases.append((f'{count} regions at n_pad {n_pad}',
+                  *density_regions(count, n_pad // 2 + 1, n_pad, 32)))
+    for label, regions, sigmas in cases:
+        kde.smoothed_states_batch(regions, sigmas, device=dev)   # cuFFT plans
+        got, ms = timed_ms(lambda: kde.smoothed_states_batch(regions, sigmas, device=dev))
+        t0 = time.perf_counter()
+        want = kde.smoothed_states_batch(regions, sigmas, device=cpu)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        pad = kde._next_pow2(max(len(x) for x in regions))
+        batch = np.full((len(regions), pad), -1, dtype=np.int8)
+        for i, x in enumerate(regions):
+            batch[i, :len(x)] = x
+        sig = torch.from_numpy(np.asarray(sigmas, dtype=np.float32))
+        _, d_cpu = kde._density_state_kernel_batch(torch.from_numpy(batch), sig, pad, 3)
+        _, d_dev = kde._density_state_kernel_batch(torch.from_numpy(batch).to(dev),
+                                                   sig.to(dev), pad, 3)
+        d_cpu = d_cpu.numpy()
+        d_dev = d_dev.cpu().numpy()
+        if not np.all(np.abs(d_dev - d_cpu)
+                      <= 1e-3 * np.abs(d_cpu) + 1e-5 * np.abs(d_cpu).max()):
+            fail(f'density {label}: CUDA densities outside the float32 tolerance')
+        undecided = 0
+        for i, (a, b) in enumerate(zip(got, want)):
+            top2 = np.sort(d_cpu[i, :, :len(a)], axis=0)[-2:]
+            decided = (top2[1] - top2[0]) > 1e-4 * np.maximum(np.abs(top2[1]), 1e-30)
+            undecided += int((~decided).sum())
+            if not np.array_equal(a[decided], b[decided]):
+                fail(f'density {label}: CUDA and CPU states differ at decided positions')
+        log(f'density {label}: decisions equal ({undecided} undecided positions), '
+            f'max |dens diff| {float(np.abs(d_dev - d_cpu).max()):.3g}; '
+            f'{ms:.2f} ms on the card (one call after a warm-up, host copies '
+            f'included), {cpu_ms:.1f} ms on the CPU')
+
+
 def run_cli(argv):
     from pav_tpu_torch.__main__ import main
     t0 = time.time()
@@ -345,10 +491,13 @@ def main():
 
     # 3. kernels against their plain versions
     stats = phase_kernels(dev)
+    phase_chain_scan(dev, stats)
+    phase_density(dev)
     torch.cuda.synchronize()
 
     with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
-        main_launches = drive_main_path(work, card)
+        main_launches, genome = drive_main_path(work, card)
+        main_launches.update(drive_scale_out(work, card, dev, genome))
 
     if 'jax' in sys.modules:
         fail('jax was imported')
@@ -364,12 +513,14 @@ def main():
 
 
 def drive_main_path(work, card):
-    """Phases 4-6; returns the kernel launches of phases 4 and 5."""
+    """Phases 4-6; returns the kernel launches of phases 4 and 5, and phase
+    4's genome (ref, h1, h2)."""
     from pav_tpu_torch.ops import dp_kernels
 
     # 4. main path, 16 Mbp diploid
     t0 = time.time()
     ref, h1, h2 = bench_genome(BENCH_REF_LEN, 11)
+    genome = (ref, h1, h2)
     log(f'genome: {len(ref) / 1e6:g} Mbp reference, haps {len(h1)} + {len(h2)} bp '
         f'({time.time() - t0:.1f} s)')
     dp_kernels.launches_reset()
@@ -410,7 +561,154 @@ def drive_main_path(work, card):
     if not gpu_recs or gpu_recs != cpu_recs:
         fail(f'cuda and cpu VCFs differ ({len(gpu_recs)} vs {len(cpu_recs)} records)')
     log(f'parity: cuda and cpu VCFs of the e2e genome identical ({len(gpu_recs)} records)')
-    return main_launches
+    return main_launches, genome
+
+
+def drive_scale_out(work, card, dev, genome):
+    """Phases 7-9 on phase 4's genome; returns the chain scan launches of
+    phase 8."""
+    import torch
+    from pav_tpu.io.fasta import SeqStore
+    from pav_tpu_torch.align.aligner import Aligner
+    from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
+
+    # 7. mesh: the DP of one haplotype split over [cuda:0, cuda:0]
+    ref, h1, _ = genome
+    ref_store = SeqStore({'chr1': ref})
+    qry = SeqStore({'tig_h1': h1})
+    al = Aligner(ref_store, {}, device=dev)
+    t0 = time.time()
+    plain = al.align_store(qry, 'h1')
+    wall_plain = time.time() - t0
+    unsharded_dp = al.dp
+    al.dp = affine_dp.BandedAligner(al.dp.scoring, device=dev, mesh=[dev, dev])
+    affine_dp.stats_reset()
+    dp_kernels.launches_reset()
+    t0 = time.time()
+    sharded = al.align_store(qry, 'h1')
+    wall_mesh = time.time() - t0
+    mesh_launches = dict(dp_kernels.LAUNCHES)
+    st = dict(affine_dp.STATS)
+    al.dp = unsharded_dp
+    if not sharded.equals(plain):
+        fail('mesh: the sharded alignment table differs from the unsharded one')
+    rows, cells = st['shard_rows'], st['shard_cells']
+    if st['sharded_puts'] <= 0 or len(rows) != 2 or max(rows) - min(rows) > 1:
+        fail(f'mesh: DP launches were not split evenly: {st["sharded_puts"]} puts, rows {rows}')
+    if mesh_launches['full'] <= 0 or mesh_launches['traceback'] <= 0:
+        fail(f'mesh: the sharded DP launched no kernel: {mesh_launches}')
+    log(f'mesh [cuda:0, cuda:0]: {plain.shape[0]} alignment records, tables equal; '
+        f'{st["sharded_puts"]} sharded puts, shard_rows {rows}, shard_cells {cells} '
+        f'(max/min {max(cells) / min(cells):.4f}); align_store wall {wall_plain:.2f} s '
+        f'unsharded, {wall_mesh:.2f} s sharded; launches {mesh_launches} on {card}')
+
+    # 8. chain fallback: no native chain kernel, so the scan runs on the card
+    from pav_tpu import native
+    orig = native.chain_dp
+    native.chain_dp = lambda *a, **k: None
+    chain_scan.launches_reset()
+    try:
+        t0 = time.time()
+        fallback = al.align_store(qry, 'h1')
+        wall_fb = time.time() - t0
+    finally:
+        native.chain_dp = orig
+    launches = {'chain_scan': chain_scan.LAUNCHES['chain_scan']}
+    if launches['chain_scan'] <= 0:
+        fail('chain fallback: the chain scan kernel was not launched')
+    if not fallback.equals(plain):
+        fail('chain fallback: the alignment table differs from the native run')
+    log(f'chain fallback: tables equal; {launches["chain_scan"]} chain_scan launches; '
+        f'align_store wall {wall_fb:.2f} s (native chaining {wall_plain:.2f} s) on {card}')
+    torch.cuda.synchronize()
+
+    # 9. cohort
+    phase_cohort(work, card, genome)
+    return launches
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def _wait_all(procs, timeout):
+    """Wait for every process; kill the rest and fail on a nonzero exit."""
+    outs = []
+    try:
+        for proc, label in procs:
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                fail(f'{label} exited {proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}')
+            outs.append(out)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def phase_cohort(work, card, genome):
+    """Two 16 Mbp diploid samples on one reference: (a) one CLI process,
+    (b) a 2-process cohort on the one card with per-process run and profile
+    directories. Both forms run under --profile-dir, so their walls carry the
+    same instrumentation."""
+    d = os.path.join(work, 'cohort')
+    os.makedirs(d)
+    ref, a1, a2 = genome
+    _, b1, b2 = bench_genome(len(ref), 11, hap_seeds=(14, 15))
+    write_fasta(os.path.join(d, 'ref.fa'), {'chr1': ref})
+    rows = ['NAME\tHAP_h1\tHAP_h2']
+    for name, (x1, x2) in (('cohA', (a1, a2)), ('cohB', (b1, b2))):
+        for hap, codes in (('h1', x1), ('h2', x2)):
+            write_fasta(os.path.join(d, f'{name}_{hap}.fa'), {f'{name}_{hap}': codes})
+        rows.append(f'{name}\t{name}_h1.fa\t{name}_h2.fa')
+    with open(os.path.join(d, 'asm.tsv'), 'w') as fh:
+        fh.write('\n'.join(rows) + '\n')
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    base = [sys.executable, '-m', 'pav_tpu_torch', '--ref', 'ref.fa',
+            '--assemblies', 'asm.tsv', '--device', DEVICE]
+
+    t0 = time.time()
+    (out_a,) = _wait_all([(subprocess.Popen(
+        base + ['--run-dir', 'run_single', '--profile-dir', 'prof_single'], cwd=d,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        'single CLI process')], 900)
+    wall_a = time.time() - t0
+
+    port = _free_port()
+    t0 = time.time()
+    outs = _wait_all([(subprocess.Popen(
+        base + ['--run-dir', f'run{pid}', '--profile-dir', f'prof{pid}',
+                '--coordinator', f'localhost:{port}', '--num-processes', '2',
+                '--process-id', str(pid), '--ship-artifacts'], cwd=d, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        f'cohort process {pid}') for pid in (0, 1)], 900)
+    wall_b = time.time() - t0
+
+    for name in ('cohA', 'cohB'):
+        if f'{name}:' not in out_a:
+            fail(f'single CLI process printed no line for {name}')
+        want = vcf_records(os.path.join(d, 'run_single', f'{name}.vcf.gz'))
+        if not want:
+            fail(f'cohort: the single-process VCF of {name} has no records')
+        for pid, out in enumerate(outs):
+            if f'{name}:' not in out or 'ERROR' in out:
+                fail(f'cohort process {pid} did not print the full manifest:\n{out}')
+            got = vcf_records(os.path.join(d, f'run{pid}', f'{name}.vcf.gz'))
+            if got != want:
+                fail(f'cohort: run{pid}/{name} VCF differs from the single-process run')
+    for pid in (0, 1):
+        with open(os.path.join(d, f'prof{pid}', 'trace.json')) as fh:
+            if TRACE_KERNEL not in fh.read():
+                fail(f'cohort process {pid}: {TRACE_KERNEL} not in its profiler trace')
+    log(f'cohort: 2 x 16 Mbp diploid samples; one process {wall_a:.2f} s, '
+        f'2-process cohort on one card {wall_b:.2f} s: samples/hour ratio '
+        f'{wall_a / wall_b:.3f}; VCFs equal in both run dirs; {TRACE_KERNEL} '
+        f'in both traces; on {card}')
 
 
 if __name__ == '__main__':

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc + ctypes).
 
 All ``csrc/*.cu`` files compile with nvcc into one shared library with a plain
-C interface, at first use, into ``build/torch_kernels/`` beside the package;
-the file name carries a hash of the sources and flags, so an edited source
-builds anew and an unchanged one loads the cached library. Every C entry
+C interface, at first use, into ``build/torch_kernels/`` beside the package:
+one nvcc per source, all started together, then one link. The file name
+carries a hash of the sources and flags, so an edited source builds anew and
+an unchanged one loads the cached library. Every C entry
 takes its pointers and the CUDA stream as ``void*``, launches on that
 stream, and returns ``cudaGetLastError()``; ``check`` turns a nonzero code
 into an exception. Nothing here runs for CPU tensors: the CPU path never
@@ -28,6 +29,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> (argtypes, restype); every pointer and the stream
 # pass as void*, every launcher returns cudaGetLastError().
 SIGNATURES = {
@@ -44,6 +46,9 @@ SIGNATURES = {
     # tb, offs, q, r, m, n, out, B, rows, w_dim, max_m, max_n, L, wave, stream
     'pav_traceback': ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _P], _I),
+    # qpos, rpos, group, f, parent, B, n, lookback, k,
+    # max_dist, max_gap_diff, gap_scale, stream
+    'pav_chain_scan': ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P], _I),
     'pav_cuda_error_string': ([_I], ctypes.c_char_p),
 }
 
@@ -77,6 +82,42 @@ def _source_hash():
     return h.hexdigest()[:16]
 
 
+def _compile(nvcc, so_path):
+    """Compile every ``.cu`` to an object with its own nvcc process (all at
+    once), link them into ``so_path``; returns the compilers' output."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    stem = f'{so_path}.{os.getpid()}'
+    compile_flags = [f for f in NVCC_FLAGS if f != '-shared']
+    jobs = []
+    for src in (p for p in _sources() if p.endswith('.cu')):
+        obj = f'{stem}.{os.path.basename(src)}.o'
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *compile_flags, '-c', '-o', obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = ''
+    failed = []
+    for obj, proc in jobs:
+        out = proc.communicate()[0]
+        log += out
+        if proc.returncode != 0:
+            failed.append(obj)
+    try:
+        if failed:
+            raise RuntimeError(f'nvcc failed on {failed}:\n{log}')
+        link = subprocess.run([nvcc, '-shared', '-o', f'{stem}.tmp',
+                               *(obj for obj, _ in jobs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({link.returncode}):\n{log}')
+        os.replace(f'{stem}.tmp', so_path)
+    finally:
+        for obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return log
+
+
 def lib():
     """The loaded kernel library, building it on the first call."""
     global _LIB
@@ -88,16 +129,7 @@ def lib():
         cached = os.path.exists(so_path)
         log = ''
         if not cached:
-            nvcc = _nvcc()
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f'{so_path}.{os.getpid()}.tmp'
-            cus = [p for p in _sources() if p.endswith('.cu')]
-            cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, *cus]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
-            os.replace(tmp, so_path)
+            log = _compile(_nvcc(), so_path)
         handle = ctypes.CDLL(so_path)
         for name, (argtypes, restype) in SIGNATURES.items():
             fn = getattr(handle, name)

@@ -1,7 +1,8 @@
 """Anchor collection and chain extraction.
 
 Seeds come from the minimizer index; the chain DP itself runs in the native
-kernel behind pav_tpu_torch.ops.chain_scan. This module owns the cheap, irregular host work:
+kernel behind pav_tpu_torch.ops.chain_scan, or in its scan on the aligner's
+device when the native library is missing. This module owns the cheap, irregular host work:
 strand transforms, grouping, backtracking parents into chains, and primary-chain
 selection (the reference ran minimap2 with --secondary=no:
 rules/align.snakefile:188).
@@ -168,8 +169,12 @@ def _extract_chains(scores, parents, qpos, rpos, chrom, rev, base,
 
 
 def find_chains(qry_codes, index, max_occ=64, lookback=64, max_dist=50000,
-                max_gap_diff=10000, min_chain_score=100, min_anchors=3):
+                max_gap_diff=10000, min_chain_score=100, min_anchors=3,
+                device=None):
     """Seed and chain one contig.
+
+    :param device: torch device of the chain scan when the native chain
+        kernel is missing (the aligner's device).
 
     :return: List of all Chains above min_chain_score, sorted by score
         descending. Primary selection is the caller's job (the aligner core
@@ -209,7 +214,7 @@ def find_chains(qry_codes, index, max_occ=64, lookback=64, max_dist=50000,
         _t1 = _time.time()
         scores, parents = chain_scores(
             qpos[lo:hi], rpos[lo:hi], group[lo:hi], k, lookback=lookback,
-            max_dist=max_dist, max_gap_diff=max_gap_diff)
+            max_dist=max_dist, max_gap_diff=max_gap_diff, device=device)
         _stat_add('dp_s', _time.time() - _t1)
         _t1 = _time.time()
         out = _extract_chains(scores, parents, qpos, rpos, chrom, rev, lo,

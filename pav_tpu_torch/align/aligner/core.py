@@ -294,7 +294,7 @@ class Aligner:
             chains = find_chains(
                 codes, self.index, max_occ=self.max_occ,
                 max_dist=self.chain_max_dist, max_gap_diff=self.chain_max_gap,
-                min_chain_score=min_score)
+                min_chain_score=min_score, device=self.device)
             ALIGN_STATS['chains_s'] += _time.time() - _t
 
             oriented_cache = dict(prep) if prep else {}
@@ -353,7 +353,7 @@ class Aligner:
             prepared[name] = {False: codes, True: seqcodec.revcomp(codes)}
             arrays.append(codes)
         ALIGN_STATS['res_prep_s'] += _time.time() - _t0
-        resident, base_map = _build_resident_from(arrays, self.device)
+        resident, base_map = _build_resident_from(arrays, self.dp.devices)
         # Reverse-complement arrays are never uploaded: a window of the rc
         # contig maps onto the forward buffer with the gather's
         # reverse+complement flags (halves the resident buffer).
@@ -846,7 +846,7 @@ class Aligner:
         if resident is None:
             import time as _time
             _t0 = _time.time()
-            resident, base_map = _build_resident(segments, self.device)
+            resident, base_map = _build_resident(segments, self.dp.devices)
             ALIGN_STATS['resident_s'] += _time.time() - _t0
 
         def locate(d):
@@ -1149,12 +1149,12 @@ def _coalesce_buckets(buckets):
     return buckets
 
 
-def _build_resident(segments, device):
+def _build_resident(segments, devices):
     """Concatenate every source array referenced by segment descriptors into
-    one int8 buffer on ``device``.
+    one int8 buffer, copied to each of ``devices``.
 
-    :return: (tensor, {id(src): base_offset}) or (None, None) when no
-        segment carries descriptors.
+    :return: ({device: tensor}, {id(src): base_offset}) or (None, None) when
+        no segment carries descriptors.
     """
     srcs = []
     seen = set()
@@ -1166,15 +1166,18 @@ def _build_resident(segments, device):
                 continue
             seen.add(id(d[0]))
             srcs.append(d[0])
-    return _build_resident_from(srcs, device)
+    return _build_resident_from(srcs, devices)
 
 
-def _build_resident_from(arrays, device):
+def _build_resident_from(arrays, devices):
     """Resident buffer from an explicit source-array list (see
     _build_resident): the plain int8 codes (0-4) of every distinct array,
-    concatenated in order and copied to ``device`` once. Gathers clamp into
-    [0, total) and mask every position past a window, so no padding or guard
-    region is needed."""
+    concatenated once on the host and copied to each of ``devices`` (the
+    DP mesh's devices get replicas, as the reference replicates the buffer
+    over its mesh). Gathers clamp into [0, total) and mask every position
+    past a window, so no padding or guard region is needed.
+
+    :return: ({device: int8 tensor}, {id(array): base offset})."""
     import time as _time
 
     srcs = []
@@ -1190,7 +1193,8 @@ def _build_resident_from(arrays, device):
         return None, None
     t0 = _time.time()
     buf = np.concatenate([np.asarray(a, dtype=np.uint8) for a in srcs]).view(np.int8)
-    resident = torch.from_numpy(buf).to(device)
+    host = torch.from_numpy(buf)
+    resident = {torch.device(d): host.to(d) for d in devices}
     ALIGN_STATS['res_upload_s'] += _time.time() - t0
     return resident, base_map
 

@@ -33,22 +33,32 @@ import torch
 from pav_tpu.align import cigar as cg
 
 from ..device import resolve_device
+from ..parallel.mesh import on_device, place_batch
 from . import dp_kernels
 
 # Per-run launch accounting (reset with stats_reset).
+# Mesh accounting, as the reference keeps it: sharded_puts counts the input
+# arrays split over a mesh, mesh_devices is the mesh size, shard_rows the
+# per-device rows of the latest sharded launch, and shard_cells the padded
+# DP cells (rows * max_m * width) accumulated per mesh device over every
+# sharded launch: max/min of shard_cells is the measured work balance.
 # classes: (max_m, max_n, width, B_pad) ->
 #   [launches, resolve_s, items, cells_pad, cells_real]
 # cells_pad  = B_pad*max_m*width per launch (what the kernels scan)
 # cells_real = sum_i m_i*min(n_i+1, width)  (what the problems need)
 STATS = {'launches': 0, 'items': 0, 'h2d_bytes': 0, 'd2h_bytes': 0,
-         'resolve_s': 0.0, 'dispatch_s': 0.0, 'classes': {}}
+         'resolve_s': 0.0, 'dispatch_s': 0.0,
+         'sharded_puts': 0, 'mesh_devices': 0, 'shard_rows': (),
+         'shard_cells': (), 'classes': {}}
 _STATS_LOCK = threading.Lock()
 
 
 def stats_reset():
     with _STATS_LOCK:
         for k in STATS:
-            STATS[k] = {} if k == 'classes' else (0.0 if k.endswith('_s') else 0)
+            STATS[k] = ({} if k == 'classes'
+                        else () if k in ('shard_rows', 'shard_cells')
+                        else (0.0 if k.endswith('_s') else 0))
 
 
 DEFAULT_SCORING = {
@@ -167,11 +177,48 @@ def _gather_resident(resident, desc, max_m, max_n):
 
 class BandedAligner:
     """Host-facing wrapper: pad/bucket segments, launch DP + traceback on
-    ``device``, turn the step tapes into CIGARs."""
+    ``device``, turn the step tapes into CIGARs.
 
-    def __init__(self, scoring=None, device=None):
+    With a ``mesh`` (``parallel.mesh``), a launch whose padded batch divides
+    by the mesh size splits into equal row shards, one per mesh device; each
+    shard runs DP and traceback on its own device's current stream and
+    copies its rows back on its own. Items are independent, so the rows are
+    those of the unsharded launch. Other launches stay on ``device``, as in
+    the reference.
+    """
+
+    def __init__(self, scoring=None, device=None, mesh=None):
         self.scoring = scoring_from_reference(scoring)
         self.device = resolve_device(device)
+        self.mesh = [resolve_device(d) for d in mesh] if mesh else None
+
+    @property
+    def devices(self):
+        """Distinct devices a launch may run on: ``device``, then the mesh's."""
+        out = [self.device]
+        for d in self.mesh or ():
+            if d not in out:
+                out.append(d)
+        return out
+
+    def _place(self, host, B_pad, max_m, width):
+        """[(device, [tensor per host array])], one entry per launch: one per
+        mesh device when the mesh divides ``B_pad`` (the reference's
+        condition), else one on ``device``. Records the mesh statistics."""
+        mesh = self.mesh
+        placed = place_batch(host, mesh, self.device)
+        if mesh is None or B_pad % len(mesh):
+            return placed
+        rows = B_pad // len(mesh)
+        with _STATS_LOCK:
+            STATS['sharded_puts'] += len(host)
+            STATS['mesh_devices'] = len(mesh)
+            STATS['shard_rows'] = (rows,) * len(mesh)
+            cur = STATS['shard_cells']
+            if len(cur) != len(mesh):
+                cur = (0,) * len(mesh)
+            STATS['shard_cells'] = tuple(c + rows * max_m * width for c in cur)
+        return placed
 
     def align_batch(self, pairs, width, pad_to=None):
         """Align a list of (q_codes, r_codes) with one bucket shape.
@@ -218,11 +265,12 @@ class BandedAligner:
             rpad[i, :len(rr)] = rr
 
         t0 = time.time()
-        dev = self.device
-        fused = align_and_trace(
-            torch.from_numpy(qpad).to(dev), torch.from_numpy(rpad).to(dev),
-            torch.from_numpy(m_p).to(dev), torch.from_numpy(n_p).to(dev),
-            max_m, width, self.scoring)
+        fused = []
+        host = [torch.from_numpy(a) for a in (qpad, rpad, m_p, n_p)]
+        for dev, (q, r, mt, nt) in self._place(host, B_pad, max_m, width):
+            with on_device(dev):
+                fused.append(align_and_trace(q, r, mt, nt, max_m, width,
+                                             self.scoring))
         with _STATS_LOCK:
             STATS['launches'] += 1
             STATS['items'] += B
@@ -235,10 +283,14 @@ class BandedAligner:
     def align_batch_refs_async(self, items, width, pad_to, pad_batch=None,
                                resident=None):
         """Resident launch: like align_batch_async, but each item is a
-        (qoff, qlen, qflags, roff, rlen, rflags) window into ``resident``
-        (int8 tensor on the device, from core._build_resident_from),
+        (qoff, qlen, qflags, roff, rlen, rflags) window into ``resident``,
         gathered on the device. flags bit0 reads the window reversed, bit1
-        complements; together they express reverse-complement windows."""
+        complements; together they express reverse-complement windows.
+
+        :param resident: {torch.device: int8 tensor} from
+            core._build_resident_from, one copy of the buffer on each of
+            ``self.devices``; each launch gathers from its own device's copy.
+        """
         B = len(items)
         max_m, max_n = int(pad_to[0]), int(pad_to[1])
         width = min(_next_pow2(int(width)) + 1, max_n + 1)
@@ -251,9 +303,13 @@ class BandedAligner:
         arr[B:, 4] = 1
 
         t0 = time.time()
-        desc = torch.from_numpy(arr).to(self.device)
-        q, r, m, n = _gather_resident(resident, desc, max_m, max_n)
-        fused = align_and_trace(q, r, m, n, max_m, width, self.scoring)
+        fused = []
+        for dev, (desc,) in self._place([torch.from_numpy(arr)], B_pad,
+                                        max_m, width):
+            with on_device(dev):
+                q, r, m, n = _gather_resident(resident[dev], desc, max_m, max_n)
+                fused.append(align_and_trace(q, r, m, n, max_m, width,
+                                             self.scoring))
         with _STATS_LOCK:
             STATS['launches'] += 1
             STATS['items'] += B
@@ -266,21 +322,29 @@ class BandedAligner:
                             cells_real=cells_real)
 
     def _finish(self, fused, B, B_pad, max_m, max_n, width, cells_real=0):
-        """Start the copy of the launch's B real rows to the host and return
+        """Start the copy of the launch's B real rows to the host (each
+        shard of ``fused``, in row order, from its own device) and return
         the resolver that waits for it and decodes the CIGARs."""
-        fused = fused[:B]
-        done = None
-        if fused.device.type == 'cuda':
-            host = torch.empty(fused.shape, dtype=torch.uint8, pin_memory=True)
-            host.copy_(fused, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(fused.device))
+        rows = fused[0].shape[0]
+        events = []
+        if fused[0].device.type == 'cuda':
+            host = torch.empty((B, fused[0].shape[1]), dtype=torch.uint8,
+                               pin_memory=True)
+            for i, part in enumerate(fused):
+                lo = i * rows
+                hi = min(B, lo + rows)
+                if hi <= lo:
+                    break
+                host[lo:hi].copy_(part[:hi - lo], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(part.device))
+                events.append(done)
         else:
-            host = fused
+            host = (fused[0] if len(fused) == 1 else torch.cat(fused))[:B]
 
         def resolve():
             t1 = time.time()
-            if done is not None:
+            for done in events:
                 done.synchronize()
             buf = host.numpy()
             dt = time.time() - t1

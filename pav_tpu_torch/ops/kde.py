@@ -13,10 +13,14 @@ caller names: the Gaussian kernels are built there from the 3 sigmas with
 full +-n_pad support (exact for every evaluated position, since data and
 grid both lie in [0, n) with n <= n_pad), then histogram, convolution, spike
 clamp and argmax, as ``pav_tpu.ops.kde._density_state_kernel`` does.
+``smoothed_states_batch`` runs the same steps on a batch of regions padded
+to one grid, optionally split by regions over a device mesh.
 """
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import on_device, place_batch
 
 _TRUNC_SIGMAS = 8.0  # kernel support half-width in sigmas (host path)
 
@@ -31,28 +35,79 @@ def _next_pow2(x):
     return n
 
 
+def _conv_batch(hist, kernels, fft_len):
+    """hist: [B, n] float32, kernels: [B, kw] float32 (kw odd, centred).
+    Linear convolution, same size as hist: [B, n]."""
+    half = kernels.shape[1] // 2
+    H = torch.fft.rfft(hist, n=fft_len, dim=1)
+    K = torch.fft.rfft(kernels, n=fft_len, dim=1)
+    full = torch.fft.irfft(H * K, n=fft_len, dim=1)
+    return full[:, half:half + hist.shape[1]]
+
+
+def _density_state_kernel_batch(state_mers, sigmas, n_pad, n_states):
+    """Batched ``_density_state_kernel``: state_mers int8 [B, n_pad], sigmas
+    float32 [B, n_states] on one device. Returns (state int8 [B, n_pad],
+    dens float32 [B, n_states, n_pad]); every step is independent per row.
+    The Gaussians are built on the device with +-n_pad support."""
+    dev = sigmas.device
+    x = torch.arange(-n_pad, n_pad + 1, dtype=torch.float32, device=dev)
+    sg = torch.clamp(sigmas[:, :, None], min=1e-30)
+    kernels = torch.where(                                        # [B, S, 2n+1]
+        sigmas[:, :, None] > 0,
+        torch.exp(-0.5 * (x / sg) ** 2) / (sg * np.float32(np.sqrt(2 * np.pi))),
+        torch.zeros((), dtype=torch.float32, device=dev))
+    hist = torch.stack([(state_mers == s).to(torch.float32)
+                        for s in range(n_states)], dim=1)         # [B, S, n]
+    fft_len = 4 * n_pad  # >= n_pad + (2*n_pad+1) - 1, pow2
+    H = torch.fft.rfft(hist, n=fft_len, dim=2)
+    K = torch.fft.rfft(kernels, n=fft_len, dim=2)
+    full = torch.fft.irfft(H * K, n=fft_len, dim=2)
+    dens = full[:, :, n_pad:2 * n_pad]
+    dens = torch.where(dens > 1.0, 1.0 / torch.clamp(dens, min=1e-30), dens)
+    state = torch.argmax(dens, dim=1).to(torch.int8)              # [B, n]
+    return state, dens
+
+
+def smoothed_states_batch(state_mers, sigmas_list, n_states=3, mesh=None,
+                          device=None):
+    """A batch of independent density-smoothing problems in one FFT pass.
+
+    Regions pad to a common power-of-two grid (label -1 past each region).
+    With a ``mesh`` (``parallel.mesh``) whose size divides the batch, the
+    regions split into equal shards, one per mesh device; otherwise the
+    batch runs on ``device``.
+
+    :param state_mers: list of int arrays (state labels per position).
+    :param sigmas_list: list of per-state sigma arrays.
+    :return: list of int8 state arrays, one per input, unpadded.
+    """
+    if not state_mers:
+        return []
+    lens = [len(s) for s in state_mers]
+    n_pad = _next_pow2(max(max(lens), 16))
+    B = len(state_mers)
+    batch = np.full((B, n_pad), -1, dtype=np.int8)
+    for i, s in enumerate(state_mers):
+        batch[i, :lens[i]] = np.asarray(s, dtype=np.int8)
+    sig = np.asarray(sigmas_list, dtype=np.float32).reshape(B, n_states)
+    placed = place_batch([torch.from_numpy(batch), torch.from_numpy(sig)],
+                         mesh, device)
+    states = []
+    for dev, (b, sg) in placed:        # launch every shard, then collect
+        with on_device(dev):
+            states.append(_density_state_kernel_batch(b, sg, n_pad, n_states)[0])
+    state_np = torch.cat([s.cpu() for s in states]).numpy()
+    return [state_np[i, :lens[i]] for i in range(B)]
+
+
 def _density_state_kernel(state_mer, sigmas, n_pad, n_states):
     """state_mer: int8 [n_pad] tensor (0..n_states-1, or -1 padding);
     sigmas: float32 [n_states] tensor on the same device. Returns (state int8
     [n_pad], dens float32 [n_states, n_pad]) on that device."""
-    dev = state_mer.device
-    f32 = torch.float32
-    x = torch.arange(-n_pad, n_pad + 1, dtype=f32, device=dev)
-    sg = torch.clamp(sigmas[:, None], min=1e-30)
-    kernels = torch.where(
-        sigmas[:, None] > 0,
-        torch.exp(-0.5 * (x[None, :] / sg) ** 2)
-        / (sg * np.float32(np.sqrt(2 * np.pi))),
-        torch.zeros((), dtype=f32, device=dev))
-    hist = torch.stack([(state_mer == s).to(f32) for s in range(n_states)])
-    fft_len = 4 * n_pad  # >= n_pad + (2*n_pad+1) - 1, pow2
-    H = torch.fft.rfft(hist, n=fft_len, dim=1)
-    K = torch.fft.rfft(kernels, n=fft_len, dim=1)
-    full = torch.fft.irfft(H * K, n=fft_len, dim=1)
-    dens = full[:, n_pad:2 * n_pad]
-    dens = torch.where(dens > 1.0, 1.0 / torch.clamp(dens, min=1e-30), dens)
-    state = torch.argmax(dens, dim=0).to(torch.int8)
-    return state, dens
+    state, dens = _density_state_kernel_batch(state_mer[None], sigmas[None],
+                                              n_pad, n_states)
+    return state[0], dens[0]
 
 
 def _host_density_states(state_mer, sigmas, n_states):

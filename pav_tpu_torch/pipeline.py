@@ -14,7 +14,9 @@ file-target checkpointing, SURVEY.md §5-checkpoint, kept only at the edges).
 
 Port of pav_tpu.pipeline: the same stages and artifacts, with the aligner and
 the inversion density on the torch port and one explicit ``torch.device``
-for the run (config key ``device``, default ``cuda``).
+for the run (config key ``device``, default ``cuda``); config key
+``mesh_devices`` > 1 splits the aligner's DP launches over that many devices
+(``parallel.mesh``).
 """
 
 import io as _io
@@ -44,6 +46,8 @@ from pav_tpu.util import build_interval_index_by_chrom
 from .align.aligner import Aligner
 from .call import inv as inv_mod, largesv
 from .device import resolve_device
+from .ops.affine_dp import BandedAligner
+from .parallel.mesh import make_mesh
 
 
 _HAP_ARTIFACTS = (
@@ -93,10 +97,10 @@ class Pipeline:
         self.config = config if isinstance(config, Config) else load_config(config)
         self.device = resolve_device(
             device if device is not None else self.config.get('device'))
-        if int(self.config.get('mesh_devices', 0) or 0) > 1:
-            raise NotImplementedError(
-                'mesh_devices > 1: multi-GPU DP batching is not ported yet '
-                '(ROADMAP A8)')
+        # mesh_devices > 1 shards DP batches over a device mesh (contig-batch
+        # data parallelism); make_mesh raises when the devices are missing.
+        n_mesh = int(self.config.get('mesh_devices', 0) or 0)
+        self.mesh = make_mesh(n_mesh, self.device) if n_mesh > 1 else None
         self.ref_store = ref if isinstance(ref, SeqStore) else SeqStore.from_file(ref)
         self.run_dir = run_dir
         self.log = log if log is not None else sys.stderr
@@ -116,6 +120,9 @@ class Pipeline:
     def aligner(self):
         if self._aligner is None:
             self._aligner = Aligner(self.ref_store, self.config, device=self.device)
+            if self.mesh is not None:
+                self._aligner.dp = BandedAligner(
+                    self._aligner.dp.scoring, device=self.device, mesh=self.mesh)
         return self._aligner
 
     def _logmsg(self, msg):

@@ -117,6 +117,9 @@ def test_shape_batch_caps(monkeypatch, m_b, w_b, n_b):
 def test_resident_buffer_is_plain_codes():
     a = np.array([0, 1, 2, 3, 4], dtype=np.uint8)
     b = np.array([3, 3, 0], dtype=np.uint8)
-    res, base = core._build_resident_from([a, b, a], 'cpu')
-    assert res.dtype == torch.int8 and res.tolist() == [0, 1, 2, 3, 4, 3, 3, 0]
+    cpu = torch.device('cpu')
+    res, base = core._build_resident_from([a, b, a], [cpu])
+    assert list(res) == [cpu]
+    assert res[cpu].dtype == torch.int8
+    assert res[cpu].tolist() == [0, 1, 2, 3, 4, 3, 3, 0]
     assert base == {id(a): 0, id(b): 5}

@@ -21,7 +21,7 @@ REPO = os.path.dirname(PKG_DIR)
 # pav_tpu modules whose import chain reaches jax.
 _JAX_MODULES = re.compile(
     r'^\s*(import\s+jax|from\s+jax[\s.]|'
-    r'(from|import)\s+pav_tpu\.(ops|parallel|pipeline|runtime|__main__|'
+    r'(from|import)\s+pav_tpu\.(ops|parallel|pipeline|__main__|'
     r'align\.aligner|call\.(density|inv|largesv))\b)', re.M)
 
 _NO_JAX_RUN = r'''
@@ -29,6 +29,7 @@ import sys
 sys.modules['jax'] = None          # any import of jax now raises ImportError
 import numpy as np
 import pav_tpu_torch, pav_tpu_torch.pipeline, pav_tpu_torch.__main__
+import pav_tpu.runtime, pav_tpu_torch.parallel.multihost
 from pav_tpu.align import cigar as cg
 from pav_tpu_torch.ops.affine_dp import BandedAligner
 rng = np.random.default_rng(0)

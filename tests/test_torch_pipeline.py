@@ -170,16 +170,19 @@ def test_cli_matches_reference(runs, tmp_path):
     assert os.path.isfile(run_dir / 'samp1' / 'h2' / 'sv_inv.tsv.gz')
 
 
-def test_cli_rejects_cohort_flags(tmp_path):
-    with pytest.raises(NotImplementedError, match='A9'):
-        cli.main(['--ref', 'r.fa', '--assemblies', 'a.tsv', '--device', 'cpu',
-                  '--coordinator', 'localhost:1234', '--num-processes', '2'])
-
-
-def test_pipeline_rejects_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match='A8'):
-        Pipeline(SeqStore({'chr1': random_seq(1000, np.random.default_rng(0))}),
-                 {'mesh_devices': 2}, device='cpu')
+def test_cli_retains_heap_before_any_work(monkeypatch):
+    """The CLI sets the reference's heap retention (pav_tpu/__main__.py
+    calls runtime.retain_heap(0) first) once, before the pipeline runs."""
+    import pav_tpu.runtime
+    import pav_tpu_torch.pipeline
+    calls = []
+    monkeypatch.setattr(pav_tpu.runtime, 'retain_heap',
+                        lambda *a, **k: calls.append(('retain_heap', a, k)))
+    monkeypatch.setattr(pav_tpu_torch.pipeline, 'run',
+                        lambda *a, **k: calls.append(('run',)) or {})
+    assert cli.main(['--ref', 'r.fa', '--assemblies', 'a.tsv',
+                     '--device', 'cpu']) == 0
+    assert calls == [('retain_heap', (0,), {}), ('run',)]
 
 
 def test_profile_dir_writes_trace(tmp_path):
