@@ -2,6 +2,15 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, parity, main path.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp-full-times
+
+With ``--dp-full-times`` it only times the full-width DP kernel of the
+checkout it sits in (phase 3's inputs and device timing, no parity) at
+every FULL_SHAPES entry and prints one JSON line {"root", "card",
+"shapes": [[B, max_m, max_n, ms, bound_ms, how], ...]}. A copy of this file
+placed in another checkout (``git archive`` of a parent commit) times that
+checkout's kernel: run the two in one call, in turns (A, B, B, A), to
+compare two versions on one card.
 
 Phases (each prints its lines; any failure exits nonzero):
   1. environment: nvidia-smi name and power limit, versions, device name;
@@ -16,7 +25,10 @@ Phases (each prints its lines; any failure exits nonzero):
      (decision level);
   4. main path: a 16 Mbp reference and a diploid sample (the generator of
      bench.py, seed 11) from FASTA through ``python -m pav_tpu_torch
-     --device cuda`` to a VCF; the full-width and traceback kernels must run;
+     --device cuda`` to a VCF; the full-width and traceback kernels must run.
+     The wall and the launches are read from that run, without a profiler;
+     the same sample then runs again under a CUDA-activity trace (equal VCF
+     records) for the device time by kernel;
   5. wavefront path: a 2 Mbp repeat-rich sample through the same CLI; the
      wavefront kernel must run;
   6. parity: the e2e test genome through the CLI on cuda and on cpu (plain
@@ -55,12 +67,44 @@ BENCH_REF_LEN = 16_000_000     # phase 4 reference (bench.py's headline size)
 REPEAT_REF_LEN = 2_000_000     # phase 5 repeat-rich reference
 # Phase 3 classes: full width (B, max_m, max_n) and wavefront (B, max_m,
 # max_n, width).
-FULL_SHAPES = [(4096, 16, 16), (512, 256, 256), (64, 2048, 2048), (16, 16, 32768)]
+FULL_SHAPES = [(4096, 16, 16), (512, 256, 256), (64, 2048, 2048), (16, 16, 32768),
+               # bench16's classes by dp_full time (the first carries ~90%)
+               (8, 2048, 2048), (8, 32, 2048), (128, 16, 64), (256, 16, 1024),
+               (1024, 16, 16), (64, 16, 256), (1024, 16, 32),
+               # the widths 8193 (the 512 x 8192 class) and 8194
+               (16, 512, 8192), (8, 16, 8193),
+               # width 129, a power-of-two class of the main path that
+               # bench16 happens not to launch (dp_full_warp<32, 4>)
+               (256, 16, 128)]
+TRACED_FULL = 4   # the first FULL_SHAPES whose tapes also go through the walker
 WAVE_SHAPES = [(8, 8192, 8192, 513), (4, 8192, 8192, 2049)]
 CHAIN_SHAPE = (64, 4096)        # phase 3 chain scan parity: slabs x anchors
 CHAIN_LONG = 1 << 20            # phase 3 chain scan alone: one slab
 DENSITY_LONG = (4, 1 << 18)     # phase 3 density: regions x n_pad
-TRACE_KERNEL = 'dp_full_kernel'  # phase 9: must appear in each process's trace
+TRACE_KERNEL = 'dp_full'       # phase 9: a dp_full kernel must appear in each trace
+# Bounds (bound_ms): the larger of bytes over HBM and operations over the
+# peak rate of their type. NVIDIA H100 SXM (NVIDIA's data sheet): 3.35 TB/s
+# HBM3; 67 TFLOP/s float32 outside the tensor cores. int32, which the data
+# sheet does not list: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost =
+# 16.7 T op/s (Hopper white paper lanes and clock).
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 64 * 132 * 1.98e9
+FP32_OPS_S = 67e12
+# int32 operations per DP cell, counted on the plain versions' recurrences:
+# full width: E1/E2 open, extend, max (6), E max (1), substitution compare
+# and select (2), diagonal add (1), Htilde max (1), a = Htilde + j*e (2),
+# running prefix max (2), F (2), open-at-left compares (2), F and H max (2),
+# eight tape bits each a compare and an or-shift into the byte (16), the
+# three validity selects (3): 40. Wavefront: the same plus F's own
+# open/extend/max per piece instead of the scan (6 for 4) and the band's
+# neighbour selects (7): 49. Traceback: one step of the walk (the branches
+# of traceback_ref's step body): 40. Chain scan: per anchor and lookback
+# candidate (64): distances, limits, the log2, gap cost FMA, score and the
+# running argmax: 20 float32/int32 operations.
+OPS_FULL_CELL = 40
+OPS_WAVE_CELL = 49
+OPS_TRACE_STEP = 40
+OPS_CHAIN_PAIR = 20
 KERNELS = {
     # name: (source, TPU kernel replaced, LAUNCHES key)
     'dp_full': ('pav_tpu_torch/csrc/dp_full.cu', 'pav_tpu/ops/pallas_dp.py:62', 'full'),
@@ -79,6 +123,145 @@ def log(msg):
 def fail(msg):
     print(f'chip_smoke: FAILED: {msg}', file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+# --------------------------------------------------- synthetic genomes
+# The generators of tests/helpers.py (random background, planted
+# mutations with truth, repeat-rich references), here on the port's own
+# seqcodec so that this script imports nothing of the JAX package
+# (``seqcodec`` is bound by main once the checkout is found).
+
+BASES = 'ACGT'
+
+
+def random_seq(n, rng, gc=0.5):
+    p = np.array([(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2])
+    return rng.choice(4, size=n, p=p).astype(np.uint8)
+
+
+class Mutator:
+    """Applies mutations to a code-array sequence, tracking truth records.
+
+    Mutations are specified at original (reference) coordinates and must be
+    non-overlapping and applied in ascending position order.
+    """
+
+    def __init__(self, ref_codes):
+        self.ref = np.asarray(ref_codes, dtype=np.uint8)
+        self.pieces = []   # list of code arrays composing the mutant
+        self.cursor = 0    # position in ref consumed so far
+        self.truth = []    # list of dicts: type, ref_pos, len, seq
+
+    def _advance(self, pos):
+        if pos < self.cursor:
+            raise ValueError('Mutations must be applied in ascending order')
+        self.pieces.append(self.ref[self.cursor:pos])
+        self.cursor = pos
+
+    def snv(self, pos, alt=None, rng=None):
+        self._advance(pos)
+        ref_base = int(self.ref[pos])
+        if alt is None:
+            choices = [b for b in range(4) if b != ref_base]
+            alt = int((rng or np.random.default_rng(pos)).choice(choices))
+        self.pieces.append(np.array([alt], dtype=np.uint8))
+        self.cursor = pos + 1
+        self.truth.append({'type': 'SNV', 'pos': pos, 'ref': BASES[ref_base], 'alt': BASES[alt]})
+
+    def ins(self, pos, seq_codes):
+        self._advance(pos)
+        seq_codes = np.asarray(seq_codes, dtype=np.uint8)
+        self.pieces.append(seq_codes)
+        self.truth.append({'type': 'INS', 'pos': pos, 'len': len(seq_codes),
+                           'seq': seqcodec.decode(seq_codes)})
+
+    def dele(self, pos, length):
+        self._advance(pos)
+        self.cursor = pos + length
+        self.truth.append({'type': 'DEL', 'pos': pos, 'len': length,
+                           'seq': seqcodec.decode(self.ref[pos:pos + length])})
+
+    def inv(self, pos, length):
+        self._advance(pos)
+        self.pieces.append(seqcodec.revcomp(self.ref[pos:pos + length]))
+        self.cursor = pos + length
+        self.truth.append({'type': 'INV', 'pos': pos, 'len': length})
+
+    def finish(self):
+        self._advance(len(self.ref))
+        return np.concatenate(self.pieces) if self.pieces else np.zeros(0, dtype=np.uint8)
+
+
+def repeat_rich_ref(length, rng, n_gap_prop=0.005):
+    """A reference with realistic repeat structure: tandem arrays, diverged
+    segmental duplications, inverted duplications, an interspersed repeat
+    family, and N-gap runs over a random background.
+
+    These are the inputs that actually break aligners (VERDICT r1 weak #6;
+    reference stressors: pavlib/inv.py:457-561 inverted dups,
+    scripts/density.py:47 low-complexity bail). Returns (codes, annotations)
+    where annotations is a list of (kind, pos, end) for the planted features.
+    """
+    seg = []
+    ann = []
+    cur = 0
+
+    # An ALU-like 300bp family consensus reused genome-wide with divergence.
+    family = random_seq(300, rng)
+
+    def diverge(codes, rate):
+        out = codes.copy()
+        n_mut = rng.binomial(len(codes), rate)
+        if n_mut:
+            idx = rng.choice(len(codes), n_mut, replace=False)
+            out[idx] = (out[idx] + 1 + rng.integers(0, 3, n_mut)) % 4
+        return out
+
+    segdup_bank = []
+    while cur < length:
+        r = rng.random()
+        if r < 0.42:                                  # unique background
+            n = int(rng.integers(3000, 12000))
+            seg.append(random_seq(n, rng))
+        elif r < 0.62:                                # tandem array
+            unit = random_seq(int(rng.integers(2, 200)), rng)
+            copies = int(rng.integers(5, max(6, 2000 // max(len(unit), 1))))
+            arr = diverge(np.tile(unit, copies), 0.01)
+            ann.append(('tandem', cur, cur + len(arr)))
+            seg.append(arr)
+        elif r < 0.74:                                # interspersed family
+            seg.append(diverge(family, 0.08))
+            ann.append(('family', cur, cur + 300))
+        elif r < 0.86 and segdup_bank:                # segdup copy (1-5% div)
+            src = segdup_bank[rng.integers(0, len(segdup_bank))]
+            dup = diverge(src, rng.uniform(0.01, 0.05))
+            if rng.random() < 0.3:                    # inverted duplication
+                dup = seqcodec.revcomp(dup)
+                ann.append(('inv_dup', cur, cur + len(dup)))
+            else:
+                ann.append(('segdup', cur, cur + len(dup)))
+            seg.append(dup)
+        elif r < 0.86:                                # seed a segdup source
+            n = int(rng.integers(5000, 20000))
+            block = random_seq(n, rng)
+            segdup_bank.append(block)
+            ann.append(('segdup_src', cur, cur + n))
+            seg.append(block)
+        elif r < 0.86 + n_gap_prop * 10:              # N-gap
+            n = int(rng.integers(100, 5000))
+            ann.append(('n_gap', cur, cur + n))
+            seg.append(np.full(n, seqcodec.AMBIG, dtype=np.uint8))
+        else:                                         # low-complexity run
+            unit = random_seq(int(rng.integers(1, 4)), rng)
+            n = int(rng.integers(200, 1500))
+            arr = np.tile(unit, n // len(unit) + 1)[:n]
+            ann.append(('low_complexity', cur, cur + n))
+            seg.append(arr)
+        cur += len(seg[-1])
+
+    codes = np.concatenate(seg)[:length]
+    ann = [(k, p, min(e, length)) for k, p, e in ann if p < length]
+    return codes, ann
 
 
 # ------------------------------------------------------------------ inputs
@@ -152,7 +335,6 @@ def write_fasta(path, records):
 def bench_genome(ref_len, seed, hap_seeds=None):
     """The diploid sample of bench.py's build_genome (no cache); haplotype
     seeds default to bench.py's (seed + 1, seed + 2)."""
-    from helpers import Mutator, random_seq
     rng = np.random.default_rng(seed)
     ref = random_seq(ref_len, rng)
     s1, s2 = hap_seeds or (seed + 1, seed + 2)
@@ -190,7 +372,6 @@ def bench_genome(ref_len, seed, hap_seeds=None):
 
 def repeat_genome(ref_len, seed):
     """The repeat-rich sample of bench.py (repeat_rich_ref + its mutator)."""
-    from helpers import Mutator, random_seq, repeat_rich_ref
     rrng = np.random.default_rng(seed)
     rref, _ = repeat_rich_ref(ref_len, rrng)
     rmut = Mutator(rref)
@@ -218,7 +399,6 @@ def repeat_genome(ref_len, seed):
 
 def e2e_genome():
     """The genome of tests/test_pipeline_e2e.py."""
-    from helpers import Mutator, random_seq
     rng = np.random.default_rng(71)
     ref = random_seq(150000, rng)
     m1 = Mutator(ref)
@@ -255,6 +435,54 @@ def median_ms(fn, reps):
     return float(np.median(times))
 
 
+def device_ms(fn, reps, needle):
+    """(ms, how): the median device time of the kernels whose name holds
+    ``needle`` over ``reps`` calls of ``fn``, from a CUDA-activity
+    torch.profiler trace, as phase 4 traces (how = 'profiler'): the kernel's
+    own time, without the host time of the call. A trace that lost the
+    kernels' records is taken again; after three such traces the time is
+    that of ``reps`` calls queued behind a sleep kernel (how = 'queued':
+    the call's other device work, such as a zero fill, included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.NamedTemporaryFile(suffix='.json') as fh:
+            prof.export_chrome_trace(fh.name)
+            with open(fh.name) as trace:
+                events = json.load(trace).get('traceEvents', [])
+        durs = [ev['dur'] / 1e3 for ev in events
+                if ev.get('cat') == 'kernel' and needle in ev.get('name', '')]
+        if durs:
+            return float(np.median(durs)), 'profiler'
+    log(f'  (no {needle} kernel in three profiler traces: timed queued behind a sleep)')
+    return queued_ms(fn, reps), 'queued'
+
+
+def queued_ms(fn, reps):
+    """Mean ms of ``reps`` calls of ``fn`` enqueued while the stream runs a
+    sleep kernel, between CUDA events: back to back on the device, so the
+    host time of a call is hidden (the call's other device work, such as a
+    zero fill, is included)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)    # ~20 ms at 1.98 GHz: the calls queue up behind it
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def timed_ms(fn):
     """(result, ms) of one call of ``fn``, timed with CUDA events."""
     import torch
@@ -271,13 +499,44 @@ def max_abs_err(a, b):
     return int((a.int() - b.int()).abs().max().item()) if a.numel() else 0
 
 
+def bound(ops, ops_rate, nbytes):
+    """(bound_ms, bound_by): the larger of nbytes over HBM and ops over
+    ops_rate."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_S
+    t_ops = 1e3 * ops / ops_rate
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def full_bound(B, mm, nn):
+    """dp_full at (B, max_m, max_n): every padded cell of the tape is an
+    output byte and is computed (rows past m and columns past n included)."""
+    cells = B * mm * (nn + 1)
+    return bound(cells * OPS_FULL_CELL, INT32_OPS_S, B * (mm + nn + 8) + cells)
+
+
+def wave_bound(B, mm, nn, ww):
+    cells = B * (mm + nn) * ww
+    return bound(cells * OPS_WAVE_CELL, INT32_OPS_S,
+                 B * (mm + nn + 8) + 4 * B * (mm + nn) + cells)
+
+
+def trace_bound(out):
+    """The walk of this run's paths: per step one tape byte and two base
+    codes read; the inputs' lengths and the fused output written."""
+    lens = out[:, -5:-1].cpu().numpy().astype(np.int64)
+    steps = int((lens << (8 * np.arange(4, dtype=np.int64))).sum())
+    return bound(steps * OPS_TRACE_STEP, INT32_OPS_S,
+                 3 * steps + 8 * out.shape[0] + out.numel())
+
+
 # ------------------------------------------------------------------ phases
 
 def phase_kernels(dev):
     import torch
     from pav_tpu_torch.ops import affine_dp, dp_kernels as K
 
-    stats = {name: {'err': 0, 'ms': None, 'plain_ms': None} for name in KERNELS}
+    stats = {name: {'err': 0, 'ms': None, 'ms_by': None, 'plain_ms': None, 'bound_ms': None,
+                    'bound_by': None, 'library_ms': None} for name in KERNELS}
     # Warm up the plain versions' torch kernels once at a tiny class, so the
     # timed plain runs below exclude one-time CUDA start-up costs.
     q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(8, 16, 16, 99))
@@ -295,13 +554,19 @@ def phase_kernels(dev):
         if not torch.equal(tb, tb_ref):
             fail(f'dp_full differs from align_full_ref at B={B} {mm}x{nn + 1}')
         err = max_abs_err(tb, tb_ref)
-        ms = median_ms(lambda: K.align_full(q, r, m, n, SCORING), 5 if mm >= 2048 else 20)
-        log(f'kernel dp_full B={B} {mm}x{nn + 1}: bit-identical, {ms:.4f} ms '
-            f'(plain {pms:.2f} ms, one run)')
+        reps = 5 if mm * nn >= 1 << 22 else 20
+        call_ms = median_ms(lambda: K.align_full(q, r, m, n, SCORING), reps)
+        ms, how = device_ms(lambda: K.align_full(q, r, m, n, SCORING), reps, 'dp_full')
+        bms, by = full_bound(B, mm, nn)
+        log(f'kernel dp_full B={B} {mm}x{nn + 1}: bit-identical, {ms:.4f} ms device ({how}) '
+            f'({call_ms:.4f} ms per call, CUDA events around the wrapper; plain '
+            f'{pms:.2f} ms, one run); bound {bms:.4f} ms ({by}), '
+            f'{100 * bms / ms:.1f}% of bound')
         if i == 0:
-            stats['dp_full'].update(ms=ms, plain_ms=pms)
+            stats['dp_full'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
         stats['dp_full']['err'] = max(stats['dp_full']['err'], err)
-        tapes.append((f'full B={B} {mm}x{nn + 1}', tb, offs, q, r, m, n, False))
+        if i < TRACED_FULL:
+            tapes.append((f'full B={B} {mm}x{nn + 1}', tb, offs, q, r, m, n, False))
     for i, (B, mm, nn, width) in enumerate(WAVE_SHAPES):
         q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(B, mm, nn, 200 + i))
         ww = affine_dp._wave_width(width)
@@ -310,11 +575,13 @@ def phase_kernels(dev):
         tb_ref, pms = timed_ms(lambda: K.align_wave_ref(q, r, m, n, doffs, ww, SCORING))
         if not torch.equal(tb, tb_ref):
             fail(f'dp_wave differs from align_wave_ref at B={B} {mm}x{nn} w{width}')
-        ms = median_ms(lambda: K.align_wave(q, r, m, n, doffs, ww, SCORING), 3)
+        ms, how = device_ms(lambda: K.align_wave(q, r, m, n, doffs, ww, SCORING), 3, 'dp_wave')
+        bms, by = wave_bound(B, mm, nn, ww)
         log(f'kernel dp_wave B={B} {mm}x{nn} width {width} ({ww} lanes): '
-            f'bit-identical, {ms:.3f} ms (plain {pms:.1f} ms, one run)')
+            f'bit-identical, {ms:.4f} ms device ({how}; plain {pms:.1f} ms, one run); bound '
+            f'{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound')
         if i == 0:
-            stats['dp_wave'].update(ms=ms, plain_ms=pms)
+            stats['dp_wave'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
         tapes.append((f'wave B={B} {mm}x{nn} w{width}', tb, doffs, q, r, m, n, True))
     for i, (label, tb, offs, q, r, m, n, wave) in enumerate(tapes):
         out = K.traceback(tb, offs, q, r, m, n, wave)
@@ -322,11 +589,13 @@ def phase_kernels(dev):
         if not torch.equal(out, ref):
             fail(f'traceback differs from traceback_ref on the {label} tape')
         stats['traceback']['err'] = max(stats['traceback']['err'], max_abs_err(out, ref))
-        ms = median_ms(lambda: K.traceback(tb, offs, q, r, m, n, wave), 5)
-        log(f'kernel traceback on {label}: bit-identical, {ms:.4f} ms '
-            f'(plain {pms:.1f} ms, one run)')
+        ms, how = device_ms(lambda: K.traceback(tb, offs, q, r, m, n, wave), 5, 'traceback')
+        bms, by = trace_bound(out)
+        log(f'kernel traceback on {label}: bit-identical, {ms:.4f} ms device '
+            f'({how}; plain {pms:.1f} ms, one run); bound {bms:.5f} ms ({by}), '
+            f'{100 * bms / ms:.1f}% of bound')
         if i == 0:
-            stats['traceback'].update(ms=ms, plain_ms=pms)
+            stats['traceback'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
     return stats
 
 
@@ -334,7 +603,7 @@ def phase_chain_scan(dev, stats):
     """The chain scan kernel against its plain version (bit for bit) at
     CHAIN_SHAPE, and alone at one CHAIN_LONG slab beside native.chain_dp."""
     import torch
-    from pav_tpu import native
+    from pav_tpu_torch import native
     from pav_tpu_torch.ops import chain_scan as C
     args = (64, 19, 50000.0, 10000.0, 0.19)
     B, n = CHAIN_SHAPE
@@ -346,11 +615,16 @@ def phase_chain_scan(dev, stats):
         fail(f'chain_scan differs from _chain_scan_ref at B={B} n={n}')
     if not bool((p >= 0).any()):
         fail('chain_scan chained no anchor')
-    ms = median_ms(lambda: C._chain_scan_batch(q, r, g, *args), 10)
+    ms, how = device_ms(lambda: C._chain_scan_batch(q, r, g, *args), 10, 'chain_scan')
     err = float((f - f_ref).abs().max().item())
-    stats['chain_scan'].update(err=err, ms=ms, plain_ms=pms)
-    log(f'kernel chain_scan B={B} x {n} anchors: bit-identical, {ms:.3f} ms '
-        f'(plain {pms:.1f} ms, one run)')
+    # Every anchor scans its 64-anchor lookback; 3 int32 inputs and 2
+    # 4-byte outputs per anchor.
+    bms, by = bound(B * n * args[0] * OPS_CHAIN_PAIR, FP32_OPS_S, 20 * B * n)
+    stats['chain_scan'].update(err=err, ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms,
+                               bound_by=by)
+    log(f'kernel chain_scan B={B} x {n} anchors: bit-identical, {ms:.4f} ms device '
+        f'({how}; plain {pms:.1f} ms, one run); bound {bms:.4f} ms ({by}), '
+        f'{100 * bms / ms:.1f}% of bound')
 
     ql, rl, gl = chain_inputs(1, CHAIN_LONG, 701)
     ql_d, rl_d, gl_d = (torch.from_numpy(a).to(dev) for a in (ql, rl, gl))
@@ -455,14 +729,34 @@ def run_sample(work, name, ref, haps, device, extra=()):
     return run_dir, wall
 
 
+def dp_full_times(card, dev):
+    """--dp-full-times: device ms of this checkout's align_full at every
+    FULL_SHAPES entry on phase 3's inputs, beside its bound, as one JSON
+    line."""
+    import torch
+    from pav_tpu_torch.ops import dp_kernels as K
+    shapes = []
+    for i, (B, mm, nn) in enumerate(FULL_SHAPES):
+        q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(B, mm, nn, 100 + i))
+        ms, how = device_ms(lambda: K.align_full(q, r, m, n, SCORING),
+                            5 if mm * nn >= 1 << 22 else 20, 'dp_full')
+        shapes.append([B, mm, nn, ms, full_bound(B, mm, nn)[0], how])
+    print(json.dumps({'root': ROOT, 'card': card, 'shapes': shapes}), flush=True)
+    return 0
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--dp-full-times', action='store_true',
+                    help="only time this checkout's full-width DP kernel at FULL_SHAPES")
+    args = ap.parse_args()
     if not os.path.isfile(os.path.join(ROOT, 'pav_tpu_torch', 'ops', 'dp_kernels.py')):
         fail(f'no pav_tpu_torch package beside {__file__}: run from a checkout of the repo')
     import torch
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this smoke run needs one CUDA GPU')
     sys.path.insert(0, ROOT)
-    sys.path.insert(0, os.path.join(ROOT, 'tests'))
 
     # 1. environment
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -471,13 +765,17 @@ def main():
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f'nvidia-smi failed: {smi.stderr.strip()}')
     card = smi.stdout.strip().splitlines()[0]
+    dev = torch.device(DEVICE, 0) if DEVICE == 'cuda' else torch.device(DEVICE)
+    if args.dp_full_times:
+        return dp_full_times(card, dev)
+    global seqcodec
+    from pav_tpu_torch import seqcodec
     log(card)
     import pandas
     log(f'torch {torch.__version__} (CUDA {torch.version.cuda}), numpy {np.__version__}, '
         f'pandas {pandas.__version__}, python {sys.version.split()[0]}')
     kind = torch.cuda.get_device_name(0)
     log(f'device: {kind} (count {torch.cuda.device_count()})')
-    dev = torch.device(DEVICE, 0) if DEVICE == 'cuda' else torch.device(DEVICE)
 
     # 2. build
     from pav_tpu_torch import _build
@@ -496,14 +794,18 @@ def main():
     torch.cuda.synchronize()
 
     with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
-        main_launches, genome = drive_main_path(work, card)
-        main_launches.update(drive_scale_out(work, card, dev, genome))
+        main_launches, genome = drive_main_path(work, card, dev)
+        for key, count in drive_scale_out(work, card, dev, genome).items():
+            main_launches[key] += count
 
     if 'jax' in sys.modules:
         fail('jax was imported')
     kernels = [{'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
                 'launches': main_launches[key], 'max_abs_err': stats[name]['err'],
-                'ms': stats[name]['ms'], 'plain_ms': stats[name]['plain_ms']}
+                'ms': stats[name]['ms'], 'ms_by': stats[name]['ms_by'],
+                'plain_ms': stats[name]['plain_ms'],
+                'bound_ms': stats[name]['bound_ms'], 'bound_by': stats[name]['bound_by'],
+                'library_ms': stats[name]['library_ms']}
                for name, (src, rep, key) in KERNELS.items()]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
@@ -512,10 +814,71 @@ def main():
     return 0
 
 
-def drive_main_path(work, card):
-    """Phases 4-6; returns the kernel launches of phases 4 and 5, and phase
-    4's genome (ref, h1, h2)."""
-    from pav_tpu_torch.ops import dp_kernels
+def trace_kernel_ms(path):
+    """{kernel name: (device ms, launches)} summed from a Chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh).get('traceEvents', [])
+    out = {}
+    for ev in events:
+        if ev.get('cat') == 'kernel' and 'dur' in ev:
+            ms, count = out.get(ev['name'], (0.0, 0))
+            out[ev['name']] = (ms + ev['dur'] / 1e3, count + 1)
+    return out
+
+
+def trace_launch_shapes(path, needle):
+    """{(kernel, grid, block): (device ms, launches)} of the kernels whose
+    name holds ``needle``, from a Chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh).get('traceEvents', [])
+    out = {}
+    for ev in events:
+        if ev.get('cat') == 'kernel' and needle in ev.get('name', ''):
+            args = ev.get('args', {})
+            key = (ev['name'].split('(')[0].split('::')[-1],
+                   tuple(args.get('grid', ())), tuple(args.get('block', ())))
+            ms, count = out.get(key, (0.0, 0))
+            out[key] = (ms + ev['dur'] / 1e3, count + 1)
+    return out
+
+
+def dp_classes(classes, dev):
+    """bench16's DP classes (affine_dp.STATS['classes']): launches, items
+    and padded cells; each full-width class's kernel timed alone at its shape
+    (device time; the kernel's work does not depend on the data), times its
+    resolved launches."""
+    import torch
+    from pav_tpu_torch.ops import dp_kernels as K
+    rows = []
+    for (mm, nn, width, b_pad), (launches, _, items, cells, real) in classes.items():
+        kind = 'full' if width == nn + 1 else 'wave'
+        ms = None
+        if kind == 'full':
+            q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(b_pad, mm, nn, 300))
+            ms, _ = device_ms(lambda: K.align_full(q, r, m, n, SCORING),
+                              5 if mm * nn >= 1 << 22 else 20, 'dp_full')
+        rows.append((kind, b_pad, mm, nn, width, launches, items, cells, real, ms))
+    rows.sort(key=lambda x: -(x[5] * x[9] if x[9] else 0))
+    total = sum(x[5] * x[9] for x in rows if x[9])
+    for kind, b_pad, mm, nn, width, launches, items, cells, real, ms in rows:
+        extra = (f', {ms:.4f} ms per launch, {launches * ms:.4f} ms in all '
+                 f'({100 * launches * ms / total:.1f}%)' if ms else '')
+        log(f'bench16 class {kind} B={b_pad} {mm}x{width}: {launches} launches, {items} items, '
+            f'{cells} padded cells ({real} real){extra}')
+    log(f'bench16 dp_full time from the class table: {total:.4f} ms')
+    cells = sum(x[7] for x in rows if x[0] == 'full')
+    nbytes = cells + sum(x[5] * x[1] * (x[2] + x[3] + 8) for x in rows if x[0] == 'full')
+    bms, by = bound(cells * OPS_FULL_CELL, INT32_OPS_S, nbytes)
+    log(f'bench16 dp_full bound from the class table: {cells} padded cells x '
+        f'{OPS_FULL_CELL} ops, {nbytes} bytes: {bms:.4f} ms ({by})')
+
+
+def drive_main_path(work, card, dev):
+    """Phases 4-6; returns the kernel launches of phases 4 and 5 (each read
+    from 0 just before its run to just after it), and phase 4's genome
+    (ref, h1, h2)."""
+    import torch
+    from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
 
     # 4. main path, 16 Mbp diploid
     t0 = time.time()
@@ -523,32 +886,67 @@ def drive_main_path(work, card):
     genome = (ref, h1, h2)
     log(f'genome: {len(ref) / 1e6:g} Mbp reference, haps {len(h1)} + {len(h2)} bp '
         f'({time.time() - t0:.1f} s)')
+    haps = {'h1': ('tig_h1', h1), 'h2': ('tig_h2', h2)}
     dp_kernels.launches_reset()
-    run_dir, wall = run_sample(work, 'bench16', ref,
-                               {'h1': ('tig_h1', h1), 'h2': ('tig_h2', h2)}, DEVICE)
-    main_launches = dict(dp_kernels.LAUNCHES)
+    chain_scan.launches_reset()
+    affine_dp.stats_reset()
+    run_dir, wall = run_sample(work, 'bench16', ref, haps, DEVICE)
+    main_launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    # A copy of the counters: the traced run below adds to the same lists.
+    classes = {k: tuple(v) for k, v in affine_dp.STATS['classes'].items()}
     recs = vcf_records(os.path.join(run_dir, 'bench16.vcf.gz'))
     mbp = (len(h1) + len(h2)) / 1e6
-    log(f'main path {len(ref) / 1e6:g} Mbp diploid: {len(recs)} VCF records, wall {wall:.2f} s, '
-        f'{mbp / wall:.3f} contig Mbp/s on {card}; launches {main_launches}')
+    log(f'main path {len(ref) / 1e6:g} Mbp diploid: {len(recs)} VCF records, wall {wall:.2f} s '
+        f'(no profiler), {mbp / wall:.3f} contig Mbp/s on {card}; launches {main_launches}')
     log('stage seconds: ' + json.dumps(stage_seconds(run_dir, 'bench16')))
     if not recs:
         fail('the 16 Mbp VCF has no records')
     if main_launches['full'] <= 0 or main_launches['traceback'] <= 0:
         fail(f'the main path did not launch the full/traceback kernels: {main_launches}')
 
+    # The same sample again under a CUDA-activity trace: device time by kernel.
+    dp_kernels.launches_reset()
+    chain_scan.launches_reset()
+    trace = os.path.join(work, 'bench16_trace.json')
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_dir_t, wall_t = run_sample(work, 'bench16t', ref, haps, DEVICE)
+    traced_launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    prof.export_chrome_trace(trace)
+    if vcf_records(os.path.join(run_dir_t, 'bench16t.vcf.gz')) != recs:
+        fail('the traced bench16 run wrote other VCF records than the untraced one')
+    log(f'bench16 again under a CUDA-activity trace: wall {wall_t:.2f} s; launches '
+        f'{traced_launches}; VCF records equal')
+    by_kernel = trace_kernel_ms(trace)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    log(f'bench16 device time by kernel ({busy:.3f} ms busy over {1e3 * wall_t:.0f} ms traced '
+        f'wall, {100 * busy / (1e3 * wall_t):.3f}%): ' + json.dumps(
+            {k: [round(v[0], 4), v[1]] for k, v in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1][0])[:25]}))
+    for name, needle in (('dp_full', 'dp_full'), ('dp_wave', 'dp_wave'),
+                         ('traceback', 'traceback_kernel'),
+                         ('chain_scan', 'chain_scan'), ('density (cuFFT)', 'fft')):
+        hits = [v for k, v in by_kernel.items() if needle in k]
+        log(f'bench16 {name}: {sum(c for _, c in hits)} device launches, '
+            f'{sum(ms for ms, _ in hits):.4f} ms device time (trace)')
+    for (kname, grid, block), (ms, count) in sorted(
+            trace_launch_shapes(trace, 'dp_full').items(), key=lambda kv: -kv[1][0]):
+        log(f'bench16 trace {kname} grid {list(grid)} block {list(block)}: '
+            f'{count} launches, {ms:.4f} ms')
+
     # 5. repeat-rich sample: the wavefront band kernel
     rref, rhap = repeat_genome(REPEAT_REF_LEN, 18)
-    before = dict(dp_kernels.LAUNCHES)
+    dp_kernels.launches_reset()
+    chain_scan.launches_reset()
     run_dir, wall = run_sample(work, 'rep2', rref, {'h1': ('rtig1', rhap)}, DEVICE)
-    rep_launches = {k: dp_kernels.LAUNCHES[k] - before[k] for k in before}
+    rep_launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
     for k in main_launches:
-        main_launches[k] = dp_kernels.LAUNCHES[k]
+        main_launches[k] += rep_launches[k]
     log(f'repeat-rich {len(rref) / 1e6:g} Mbp: wall {wall:.2f} s, {len(rhap) / 1e6 / wall:.3f} contig '
         f'Mbp/s on {card}; launches {rep_launches}')
     log('stage seconds: ' + json.dumps(stage_seconds(run_dir, 'rep2')))
     if rep_launches['wave'] <= 0:
         fail(f'the repeat-rich sample did not launch the wave kernel: {rep_launches}')
+    dp_classes(classes, dev)
 
     # 6. cuda vs cpu on the e2e genome
     ref, h1, h2 = e2e_genome()
@@ -568,7 +966,7 @@ def drive_scale_out(work, card, dev, genome):
     """Phases 7-9 on phase 4's genome; returns the chain scan launches of
     phase 8."""
     import torch
-    from pav_tpu.io.fasta import SeqStore
+    from pav_tpu_torch.io.fasta import SeqStore
     from pav_tpu_torch.align.aligner import Aligner
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
 
@@ -603,7 +1001,7 @@ def drive_scale_out(work, card, dev, genome):
         f'unsharded, {wall_mesh:.2f} s sharded; launches {mesh_launches} on {card}')
 
     # 8. chain fallback: no native chain kernel, so the scan runs on the card
-    from pav_tpu import native
+    from pav_tpu_torch import native
     orig = native.chain_dp
     native.chain_dp = lambda *a, **k: None
     chain_scan.launches_reset()

@@ -2,13 +2,15 @@
 
 The same assembly-to-reference variant caller as ``pav_tpu``: align contigs to
 a reference, trim the alignments, call SNVs, indels, SVs and inversions, merge
-haplotypes and write a VCF. The host stages come unchanged from the jax-free
-modules of ``pav_tpu``; the modules on the device path (the affine-gap DP, its
-traceback, the inversion density FFT and everything that imports them) live
-here, on tensors of an explicit ``torch.device``. The DP and traceback kernels
-are CUDA C++ for ``sm_90a`` (``csrc/``), built with nvcc at first use.
+haplotypes and write a VCF. The port carries its own copy of every host
+module it runs (sequence codec, I/O, alignment tables, trimming, callers,
+merging, VCF) at the same relative path as in ``pav_tpu``, and imports
+nothing of ``pav_tpu``. The modules on the device path (the affine-gap DP, its
+traceback, the inversion density FFT and everything that imports them) run
+on tensors of an explicit ``torch.device``. The DP, traceback and chain scan
+kernels are CUDA C++ for ``sm_90a`` (``csrc/``), built with nvcc at first use.
 """
 
-from pav_tpu.constants import get_version_string
+from .constants import get_version_string
 
 __version__ = get_version_string()

@@ -53,7 +53,7 @@ def main(argv=None):
 
     # Engine processes churn large short-lived buffers; keeping freed pages in
     # the heap avoids munmap/refault cycles (the reference CLI's setting).
-    from pav_tpu.runtime import retain_heap
+    from .runtime import retain_heap
     retain_heap(0)
 
     overrides = {}
@@ -80,7 +80,7 @@ def main(argv=None):
 def _run_cohort_process(args, overrides):
     """This process's share of a cohort run; prints the full cohort manifest
     and returns 1 when any sample failed."""
-    from pav_tpu.assembly_table import read_assembly_table
+    from .assembly_table import read_assembly_table
 
     from .parallel.multihost import finalize, gather_manifest, init, shard_samples
     from .pipeline import run

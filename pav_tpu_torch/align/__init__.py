@@ -1,1 +1,1 @@
-"""Alignment: the aligner of the torch port (host alignment modules come from pav_tpu.align)."""
+"""Alignment core: CIGAR codec, alignment table, aligner, trimming, liftover."""

@@ -115,7 +115,7 @@ def _extract_chains(scores, parents, qpos, rpos, chrom, rev, base,
     qpos/rpos/chrom/rev are the full sorted arrays. Only anchors that can seed
     an acceptable chain are visited (most anchors score ~k).
     """
-    from pav_tpu import native
+    from ... import native
 
     chains = []
     n = len(scores)
@@ -188,7 +188,7 @@ def find_chains(qry_codes, index, max_occ=64, lookback=64, max_dist=50000,
     if n == 0:
         return []
 
-    from pav_tpu import native
+    from ... import native
     _t = _time.time()
     res = native.sort_anchors(qpos, rpos, chrom, rev.astype(np.uint8))
     if res is not None:

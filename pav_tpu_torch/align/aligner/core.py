@@ -28,9 +28,9 @@ import numpy as np
 import pandas as pd
 import torch
 
-from pav_tpu import seqcodec
-from pav_tpu.align import cigar as cg
-from pav_tpu.align.table import ALIGN_COLUMNS, empty_align_table, sort_align_table
+from ... import seqcodec
+from ...align import cigar as cg
+from ...align.table import ALIGN_COLUMNS, empty_align_table, sort_align_table
 
 from ...ops import affine_dp
 from .chain import find_chains
@@ -247,7 +247,7 @@ class Aligner:
         name = str(cfg.get('aligner', 'native'))
         preset = self.PRESETS.get(self.ALIASES.get(name, name))
         if preset:
-            from pav_tpu.config import DEFAULTS
+            from ...config import DEFAULTS
             for key, val in preset.items():
                 # Preset overrides framework defaults but not explicit settings.
                 if key not in cfg or cfg.get(key) == DEFAULTS.get(key):
@@ -740,7 +740,7 @@ class Aligner:
         :return: True when refinement succeeded (parts appended), False to fall
             back to one DP segment.
         """
-        from pav_tpu import kmer as km
+        from ... import kmer as km
 
         k2 = self._REFINE_K
         qk, qv = km.kmer_codes(sq, k2)

@@ -8,7 +8,7 @@ binary search — replicated or sharded per host in the multi-host path.
 
 import numpy as np
 
-from pav_tpu import kmer as km
+from ... import kmer as km
 
 _SIGN_FLIP = np.uint64(0x8000000000000000)
 _INVALID = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -65,7 +65,7 @@ def minimizers(codes, k, w):
         return empty
 
     # Primary path: single-pass native sketcher (native/minimizer.cpp).
-    from pav_tpu import native
+    from ... import native
     res = native.minimizer_sketch(codes, k, w)
     if res is not None:
         return res
@@ -171,7 +171,7 @@ class MinimizerIndex:
 
         # Primary lookup path: native open-addressing probe table (O(1) per
         # query vs a 25-deep random-access binary search at chromosome scale).
-        from pav_tpu import native
+        from ... import native
         try:
             self._hash_index = native.HashIndex(
                 self.uniq_hashes, self.uniq_starts, self.uniq_counts)

@@ -1,1 +1,1 @@
-"""Variant calling stages whose density scan runs on the torch port."""
+"""Variant-calling domain logic: CIGAR calls, large SVs, inversions, integration, merging."""

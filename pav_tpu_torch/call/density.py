@@ -15,8 +15,8 @@ States: 0=FWD, 1=FWDREV, 2=REV, -1=NA (k-mer absent from reference region).
 import numpy as np
 import pandas as pd
 
-from pav_tpu import kmer as km
-from pav_tpu.constants import ERR_INV_FAIL  # noqa: F401  (re-exported for callers)
+from .. import kmer as km
+from ..constants import ERR_INV_FAIL  # noqa: F401  (re-exported for callers)
 
 from ..ops import kde
 

@@ -15,8 +15,8 @@ torch port on the device the caller names (``device``).
 
 import numpy as np
 
-from pav_tpu.constants import CALL_SOURCE_FLAG_DEN  # noqa: F401
-from pav_tpu.regions import Region
+from ..constants import CALL_SOURCE_FLAG_DEN  # noqa: F401
+from ..regions import Region
 
 from . import density as dens
 
@@ -271,7 +271,7 @@ def annotate_inv_dup_mers(df, region_ref_outer, region_ref_inner,
     copy (reference: pavlib/inv.py:457-561). Adds FLANK ('' / UP / DN) and MATCH
     ('' / SAME / OTHER / NaN)."""
     import pandas as pd
-    from pav_tpu import kmer as km
+    from .. import kmer as km
 
     region_dup_ref_up = Region(region_ref_outer.chrom, region_ref_outer.pos,
                                region_ref_inner.pos)

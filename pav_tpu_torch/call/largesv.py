@@ -16,15 +16,15 @@ import sys
 
 import pandas as pd
 
-from pav_tpu import seqcodec
-from pav_tpu.align import cigar as cg
-from pav_tpu.align.lift import AlignLift
-from pav_tpu.call import homology as hom
-from pav_tpu.call.variant_id import version_id
-from pav_tpu.constants import (CALL_SOURCE_ALNTRUNC, CALL_SOURCE_ALNTRUNC_DEN,
+from .. import seqcodec
+from ..align import cigar as cg
+from ..align.lift import AlignLift
+from ..call import homology as hom
+from ..call.variant_id import version_id
+from ..constants import (CALL_SOURCE_ALNTRUNC, CALL_SOURCE_ALNTRUNC_DEN,
                                CALL_SOURCE_ALNTRUNC_NODEN)
-from pav_tpu.kmer import KmerUtil
-from pav_tpu.regions import Region
+from ..kmer import KmerUtil
+from ..regions import Region
 
 from . import inv as inv_mod
 

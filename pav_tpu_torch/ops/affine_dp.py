@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from pav_tpu.align import cigar as cg
+from ..align import cigar as cg
 
 from ..device import resolve_device
 from ..parallel.mesh import on_device, place_batch

@@ -33,7 +33,7 @@ import threading
 import numpy as np
 import torch
 
-from pav_tpu import native
+from .. import native
 
 from .. import _build
 from ..parallel.mesh import on_device, place_batch

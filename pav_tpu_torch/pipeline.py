@@ -27,23 +27,22 @@ import numpy as np
 import pandas as pd
 import torch
 
-from pav_tpu import constants, seqcodec, vcf as vcf_mod
-from pav_tpu.align.lift import AlignLift
-from pav_tpu.align.table import depth_table, finalize_align_table
-from pav_tpu.align.trim import trim_alignments
-from pav_tpu.assembly_table import (get_filter_spec, get_hap_list, load_filter_regions,
-                                    load_haplotype_seqs, read_assembly_table,
-                                    get_asm_config_override)
-from pav_tpu.call import inv_flag
-from pav_tpu.call.cigar_calls import make_insdel_snv_calls
-from pav_tpu.call.integrate import callable_regions, get_merge_params, integrate_sources, merge_haplotypes
-from pav_tpu.config import Config, load_config, override_config
-from pav_tpu.io.fasta import SeqStore
-from pav_tpu.kmer import KmerUtil
-from pav_tpu.regions import Region
-from pav_tpu.util import build_interval_index_by_chrom
-
+from . import constants, seqcodec, vcf as vcf_mod
 from .align.aligner import Aligner
+from .align.lift import AlignLift
+from .align.table import depth_table, finalize_align_table
+from .align.trim import trim_alignments
+from .assembly_table import (get_filter_spec, get_hap_list, load_filter_regions,
+                             load_haplotype_seqs, read_assembly_table,
+                             get_asm_config_override)
+from .call import inv_flag
+from .call.cigar_calls import make_insdel_snv_calls
+from .call.integrate import callable_regions, get_merge_params, integrate_sources, merge_haplotypes
+from .config import Config, load_config, override_config
+from .io.fasta import SeqStore
+from .kmer import KmerUtil
+from .regions import Region
+from .util import build_interval_index_by_chrom
 from .call import inv as inv_mod, largesv
 from .device import resolve_device
 from .ops.affine_dp import BandedAligner
@@ -265,7 +264,7 @@ class Pipeline:
         # Resolve redundant TRIM-failed calls (reference:
         # rules/call.snakefile:287-485): one representative per site in the
         # nonredundant FAIL set; PASS-intersecting fails become redundant.
-        from pav_tpu.call.redundancy import resolve_fail_redundancy
+        from .call.redundancy import resolve_fail_redundancy
         res.fail_redundant = {}
         for varsvtype, (df_pass, df_fail) in list(res.integrated.items()):
             svtype = varsvtype.split('_')[1]
@@ -321,7 +320,7 @@ class Pipeline:
             if inv_call is None or inv_call.id in id_set:
                 continue
             seq = qry_store.fetch_region(inv_call.region_tig_outer)
-            from pav_tpu.util import collapse_to_set
+            from .util import collapse_to_set
             align_index = ','.join(sorted(collapse_to_set(
                 (inv_call.region_ref_outer.pos_aln_index,
                  inv_call.region_ref_outer.end_aln_index,
@@ -380,7 +379,7 @@ class Pipeline:
         res = self.load_hap_artifacts(asm_name, hap)
         if res is None:
             return None
-        from pav_tpu.call.redundancy import resolve_fail_redundancy
+        from .call.redundancy import resolve_fail_redundancy
         res.integrated = integrate_sources(
             res.df_insdel, res.df_snv, res.df_lg_ins, res.df_lg_del,
             res.df_lg_inv, res.df_inv, res.depth_qry, cfg,
@@ -503,7 +502,7 @@ class Pipeline:
             matplotlib.use('Agg')
             import matplotlib.pyplot as plt
 
-            from pav_tpu import plot as plot_mod
+            from . import plot as plot_mod
 
         dens_dir = os.path.join(hdir, 'inv_density')
         fig_dir = os.path.join(hdir, 'figures')
@@ -541,7 +540,7 @@ class Pipeline:
         independent job; here each bin is a thread-pool task)."""
         from concurrent.futures import ThreadPoolExecutor
 
-        from pav_tpu.call.batching import merge_batch_table
+        from .call.batching import merge_batch_table
 
         batch_df = merge_batch_table(dict(self.ref_store.fai()))
         chrom_batches = [
@@ -647,8 +646,8 @@ class Pipeline:
             # rules/align.snakefile:305-327; both containers are written
             # natively here).
             try:
-                from pav_tpu.io.cram import write_cram
-                from pav_tpu.io.sam import write_bam
+                from .io.cram import write_cram
+                from .io.sam import write_bam
                 store = (stores or {}).get(hap)
                 if store is not None:
                     write_bam(res.align_qryref, store, self.ref_store.fai(),
@@ -661,7 +660,7 @@ class Pipeline:
             # .bed.gz plus native BigBed containers (the reference's
             # bedToBigBed outputs at rules/tracks.snakefile:115,192).
             try:
-                from pav_tpu import tracks
+                from . import tracks
                 chrom_sizes = dict(self.ref_store.fai())
                 tracks.alignment_track(
                     res.align_qryref, os.path.join(hdir, 'align_track.bed.gz'),

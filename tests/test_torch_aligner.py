@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from pav_tpu.align.aligner import Aligner as RefAligner
-from pav_tpu.io.fasta import SeqStore
+from pav_tpu.io.fasta import SeqStore as RefSeqStore
 from pav_tpu_torch.align.aligner import Aligner
 from pav_tpu_torch.align.aligner import core
+from pav_tpu_torch.io.fasta import SeqStore
 from pav_tpu_torch.ops import affine_dp
 
 from helpers import Mutator, random_seq, repeat_rich_ref
@@ -35,11 +36,11 @@ def _ref_align(ref_store, store, config, monkeypatch):
 
 
 def _compare(ref, hap, config, monkeypatch):
-    ref_store = SeqStore({'chr1': ref})
-    store = SeqStore({'c1': hap})
-    want = _ref_align(ref_store, store, config, monkeypatch)
+    want = _ref_align(RefSeqStore({'chr1': ref}), RefSeqStore({'c1': hap}),
+                      config, monkeypatch)
     affine_dp.stats_reset()
-    got = Aligner(ref_store, config, device='cpu').align_store(store, 'h1')
+    got = Aligner(SeqStore({'chr1': ref}), config,
+                  device='cpu').align_store(SeqStore({'c1': hap}), 'h1')
     assert got.shape[0] >= 1
     pd.testing.assert_frame_equal(got.reset_index(drop=True),
                                   want.reset_index(drop=True))

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from pav_tpu import native
+from pav_tpu import native as ref_native
 from pav_tpu.ops import chain_scan as ref_chain_scan
+from pav_tpu_torch import native
 from pav_tpu_torch.ops import chain_scan
 from pav_tpu_torch.parallel.mesh import make_mesh
 
@@ -41,7 +42,7 @@ def test_batch_matches_jax_scan_and_native(seed, k, jitter):
     assert len(got) == len(slabs)
     chained = 0
     for (qp, rp, gp), (f, p), (fw, pw) in zip(slabs, got, want):
-        fn, pn = native.chain_dp(qp, rp, gp, k, 64, 50000, 10000, 0.01 * k)
+        fn, pn = ref_native.chain_dp(qp, rp, gp, k, 64, 50000, 10000, 0.01 * k)
         assert f.dtype == np.float32 and p.dtype == np.int64
         assert np.array_equal(f, fw) and np.array_equal(p, pw)
         assert np.array_equal(f, fn) and np.array_equal(p, pn)
@@ -77,7 +78,7 @@ def test_limits_compare_in_float32():
 
 def test_native_missing_falls_back_to_device_scan(monkeypatch):
     slabs = _slabs(37, count=3)
-    want = [native.chain_dp(q, r, g, 19, 64, 50000, 10000, 0.19) for q, r, g in slabs]
+    want = [ref_native.chain_dp(q, r, g, 19, 64, 50000, 10000, 0.19) for q, r, g in slabs]
     monkeypatch.setattr(native, 'chain_dp', lambda *a, **k: None)
     for (q, r, g), (fw, pw) in zip(slabs, want):
         f, p = chain_scan.chain_scores(q, r, g, 19, device=CPU)
@@ -89,8 +90,8 @@ def test_native_missing_falls_back_to_device_scan(monkeypatch):
 def test_find_chains_runs_on_the_aligner_device_without_native(monkeypatch):
     """With native.chain_dp gone, the aligner's chaining takes the scan on
     its own device and finds the same chains."""
-    from pav_tpu.io.fasta import SeqStore
     from pav_tpu_torch.align.aligner import Aligner
+    from pav_tpu_torch.io.fasta import SeqStore
 
     from helpers import random_seq
     rng = np.random.default_rng(38)

@@ -13,9 +13,10 @@ import sys
 import numpy as np
 import pytest
 
-from pav_tpu import seqcodec
-from pav_tpu.io.fasta import SeqStore
+from pav_tpu.io.fasta import SeqStore as RefSeqStore
 from pav_tpu.parallel.multihost import shard_samples as ref_shard_samples
+from pav_tpu_torch import seqcodec
+from pav_tpu_torch.io.fasta import SeqStore
 from pav_tpu_torch.parallel import multihost
 
 from helpers import Mutator, random_seq
@@ -105,11 +106,13 @@ def _vcf_records(path):
         return [line for line in fh if not line.startswith('##')]
 
 
-def _assemblies(tmp_path, n_samples):
-    """The written cohort as run_cohort takes it: {sample: {hap: SeqStore}}."""
+def _assemblies(tmp_path, n_samples, store=SeqStore):
+    """The written cohort as run_cohort takes it: {sample: {hap: store}},
+    each haplotype read by ``store.from_file`` (the port's SeqStore, or the
+    reference's for the reference's run)."""
     names = [ln.split('\t')[0] for ln in
              (tmp_path / 'asm.tsv').read_text().splitlines()[1:]]
-    return {name: {f'h{hi}': SeqStore.from_file(str(tmp_path / f's{si}h{hi}.fa'))
+    return {name: {f'h{hi}': store.from_file(str(tmp_path / f's{si}h{hi}.fa'))
                    for hi in (1, 2)}
             for si, name in enumerate(names[:n_samples], start=1)}
 
@@ -127,10 +130,10 @@ def cohort2_reference(tmp_path_factory):
     d = tmp_path_factory.mktemp('cohort2_ref')
     _write_cohort(d, *COHORT2)
     with reference_accel_branch():
-        pipe = RefPipeline(SeqStore.from_file(str(d / 'ref.fa')),
+        pipe = RefPipeline(RefSeqStore.from_file(str(d / 'ref.fa')),
                            {'aligner_min_chain_score': 500}, run_dir=str(d / 'run'))
         return {name: _vcf_records(pipe.run_sample(name, haps)['vcf'])
-                for name, haps in _assemblies(d, 2).items()}
+                for name, haps in _assemblies(d, 2, RefSeqStore).items()}
 
 
 def test_run_cohort_in_process_matches_reference(tmp_path, cohort2_reference):

@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from pav_tpu.call import density as ref_density
-from pav_tpu.kmer import KmerUtil
+from pav_tpu.kmer import KmerUtil as RefKmerUtil
 from pav_tpu.ops import kde as ref_kde
 from pav_tpu_torch.call import density
+from pav_tpu_torch.kmer import KmerUtil
 from pav_tpu_torch.ops import kde
 
 from helpers import random_seq
@@ -81,13 +82,14 @@ def test_fft_path_needs_a_device():
 def test_smoothed_density_table_matches_reference():
     """get_smoothed_density on an inverted contig region (host path)."""
     rng = np.random.default_rng(8)
-    k_util = KmerUtil(31)
     ref = random_seq(12000, rng)
     inv = ref.copy()
     inv[4000:8000] = (3 - inv[4000:8000])[::-1]
-    ref_kmers = ref_density.ref_kmer_set(ref, k_util)
-    want = ref_density.get_smoothed_density(inv, ref_kmers, k_util)
-    got = density.get_smoothed_density(inv, ref_kmers, k_util,
+    ref_k_util = RefKmerUtil(31)
+    want = ref_density.get_smoothed_density(
+        inv, ref_density.ref_kmer_set(ref, ref_k_util), ref_k_util)
+    k_util = KmerUtil(31)
+    got = density.get_smoothed_density(inv, density.ref_kmer_set(ref, k_util), k_util,
                                        device=torch.device('cpu'))
     assert (got['STATE'] == 2).any() and (got['STATE'] == 0).any()
     pd.testing.assert_frame_equal(got, want)

@@ -216,7 +216,8 @@ def test_fused_buffer_opposing_gaps():
 def test_banded_aligner_cigars_match_reference():
     """BandedAligner.align_batch (host padding + launch + resolve) returns the
     reference's CIGARs."""
-    from pav_tpu.align import cigar as cg
+    from pav_tpu.align import cigar as ref_cg
+    from pav_tpu_torch.align import cigar as cg
     rng = np.random.default_rng(29)
     pairs = []
     for _ in range(10):
@@ -226,7 +227,7 @@ def test_banded_aligner_cigars_match_reference():
         if mm > 15:
             rr = np.delete(rr, slice(4, 9))
         pairs.append((qq, rr))
-    want = [cg.to_string(*res) for res in
+    want = [ref_cg.to_string(*res) for res in
             A.BandedAligner().align_batch(pairs, width=65, pad_to=64)]
     got = [cg.to_string(*res) for res in
            TA.BandedAligner(device='cpu').align_batch(pairs, width=65, pad_to=64)]

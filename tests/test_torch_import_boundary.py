@@ -1,6 +1,7 @@
 """The torch port's boundary: it never imports jax, it never runs on a device
 it was not given, and a CUDA tensor never falls back to a plain version."""
 
+import gzip
 import os
 import re
 import subprocess
@@ -18,19 +19,21 @@ from pav_tpu_torch.ops import dp_kernels
 PKG_DIR = os.path.dirname(os.path.abspath(pav_tpu_torch.__file__))
 REPO = os.path.dirname(PKG_DIR)
 
-# pav_tpu modules whose import chain reaches jax.
+# Any import of jax or of the JAX package (``pav_tpu``, not ``pav_tpu_torch``).
 _JAX_MODULES = re.compile(
-    r'^\s*(import\s+jax|from\s+jax[\s.]|'
-    r'(from|import)\s+pav_tpu\.(ops|parallel|pipeline|__main__|'
-    r'align\.aligner|call\.(density|inv|largesv))\b)', re.M)
+    r'^\s*(import\s+jax|from\s+jax[\s.]|(from|import)\s+pav_tpu(\.|\s|$))', re.M)
 
-_NO_JAX_RUN = r'''
-import sys
-sys.modules['jax'] = None          # any import of jax now raises ImportError
+# Run in a fresh interpreter with jax and pav_tpu blocked: any import of
+# either raises ImportError.
+_BLOCK = "import sys; sys.modules['jax'] = None; sys.modules['pav_tpu'] = None\n"
+
+_NO_JAX_RUN = _BLOCK + r'''
+import importlib, pkgutil
 import numpy as np
-import pav_tpu_torch, pav_tpu_torch.pipeline, pav_tpu_torch.__main__
-import pav_tpu.runtime, pav_tpu_torch.parallel.multihost
-from pav_tpu.align import cigar as cg
+import pav_tpu_torch
+for info in pkgutil.walk_packages(pav_tpu_torch.__path__, 'pav_tpu_torch.'):
+    importlib.import_module(info.name)
+from pav_tpu_torch.align import cigar as cg
 from pav_tpu_torch.ops.affine_dp import BandedAligner
 rng = np.random.default_rng(0)
 q = rng.integers(0, 4, 50).astype(np.uint8)
@@ -39,8 +42,14 @@ out = BandedAligner(device='cpu').align_batch([(q, r), (q[:20], q[:20])], width=
 print(';'.join(cg.to_string(*x) for x in out))
 '''
 
+_NO_JAX_CLI = _BLOCK + (
+    "import runpy; sys.argv = ['pav_tpu_torch'] + sys.argv[1:]; "
+    "runpy.run_module('pav_tpu_torch', run_name='__main__', alter_sys=True)")
+
 
 def test_port_imports_and_aligns_without_jax():
+    """Every module of the port imports with jax and pav_tpu blocked, and a
+    tiny aligner job runs through the port's own CIGAR codec."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', _NO_JAX_RUN], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -48,18 +57,56 @@ def test_port_imports_and_aligns_without_jax():
     assert proc.stdout.strip().splitlines()[-1] == '10=4I36=;20='
 
 
+def test_cli_writes_vcf_without_jax_or_pav_tpu(tmp_path):
+    """``python -m pav_tpu_torch --device cpu`` with jax and pav_tpu blocked,
+    on the verify recipe's sample (200 kb reference; an SNV, a 300 bp DEL
+    and a second SNV): the VCF holds records at the planted positions."""
+    from pav_tpu_torch import seqcodec
+    from pav_tpu_torch.io.fasta import write_fasta
+
+    from helpers import Mutator, random_seq
+    rng = np.random.default_rng(7)
+    ref = random_seq(200000, rng)
+    mut = Mutator(ref)
+    mut.snv(5000, rng=rng)
+    mut.dele(50000, 300)
+    mut.snv(120000, rng=rng)
+    write_fasta({'chr1': seqcodec.decode(ref)}, str(tmp_path / 'ref.fa'))
+    write_fasta({'tig1': seqcodec.decode(mut.finish())}, str(tmp_path / 'h1.fa'))
+    (tmp_path / 'asm.tsv').write_text('NAME\tHAP_h1\nS1\th1.fa\n')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, '-c', _NO_JAX_CLI, '--ref', 'ref.fa', '--assemblies',
+         'asm.tsv', '--run-dir', 'run', '--device', 'cpu'],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    with gzip.open(tmp_path / 'run' / 'S1.vcf.gz', 'rt') as fh:
+        pos = {int(line.split('\t')[1]) for line in fh if not line.startswith('#')}
+    assert {5001, 50000, 120001} <= pos, sorted(pos)
+
+
 def test_no_source_file_imports_jax():
+    """No module of the port and not chip_smoke.py imports jax or pav_tpu."""
     offenders = []
+    paths = [os.path.join(REPO, 'chip_smoke.py')]
     for root, _, files in os.walk(PKG_DIR):
-        for name in files:
-            if name.endswith('.py'):
-                path = os.path.join(root, name)
-                with open(path) as fh:
-                    if _JAX_MODULES.search(fh.read()):
-                        offenders.append(os.path.relpath(path, REPO))
+        paths += [os.path.join(root, name) for name in files if name.endswith('.py')]
+    for path in paths:
+        with open(path) as fh:
+            if _JAX_MODULES.search(fh.read()):
+                offenders.append(os.path.relpath(path, REPO))
+    assert len(paths) > 50
     assert not offenders
-    with open(os.path.join(REPO, 'chip_smoke.py')) as fh:
-        assert not _JAX_MODULES.search(fh.read())
+
+
+def test_boundary_pattern():
+    for line in ('import jax', 'from jax import numpy', 'import pav_tpu',
+                 'from pav_tpu import seqcodec', 'from pav_tpu.io.fasta import SeqStore',
+                 '    import pav_tpu.runtime'):
+        assert _JAX_MODULES.search(line), line
+    for line in ('import pav_tpu_torch', 'from pav_tpu_torch import native',
+                 'from .align import cigar', '# from pav_tpu'):
+        assert not _JAX_MODULES.search(line), line
 
 
 def test_resolve_device():
@@ -76,7 +123,7 @@ def test_resolve_device():
 
 
 def test_pipeline_defaults_to_cuda():
-    from pav_tpu.io.fasta import SeqStore
+    from pav_tpu_torch.io.fasta import SeqStore
     from pav_tpu_torch.pipeline import Pipeline
     if torch.cuda.is_available():
         pytest.skip('CUDA present: the default device resolves')

@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from pav_tpu.align import cigar as cg
-from pav_tpu.io.fasta import SeqStore
+from pav_tpu.align import cigar as ref_cg
+from pav_tpu.io.fasta import SeqStore as RefSeqStore
 from pav_tpu.ops import affine_dp as ref_affine_dp
 from pav_tpu.parallel import mesh as ref_mesh
 from pav_tpu.pipeline import Pipeline as RefPipeline
+from pav_tpu_torch.align import cigar as cg
 from pav_tpu_torch.align.aligner import Aligner
+from pav_tpu_torch.io.fasta import SeqStore
 from pav_tpu_torch.ops import affine_dp
 from pav_tpu_torch.parallel import mesh
 from pav_tpu_torch.pipeline import Pipeline
@@ -76,7 +78,7 @@ def test_sharded_dp_matches_single_device(n_pairs):
     """64 pairs: B_pad divides by 8 and every launch shards; 61 pairs: the
     padding rows land in the last shard and are dropped."""
     pairs = _pairs()[:n_pairs]
-    want = [cg.to_string(*x) for x in
+    want = [ref_cg.to_string(*x) for x in
             ref_affine_dp.BandedAligner().align_batch(pairs, width=65, pad_to=64)]
     single = affine_dp.BandedAligner(device='cpu')
     sharded = affine_dp.BandedAligner(device='cpu', mesh=mesh.make_mesh(8, 'cpu'))
@@ -101,7 +103,7 @@ def test_unsharded_when_mesh_does_not_divide_the_batch():
 
 
 def test_sharded_aligner_end_to_end():
-    from pav_tpu.align.table import check_table
+    from pav_tpu_torch.align.table import check_table
 
     rng = np.random.default_rng(18)
     ref = random_seq(60000, rng)
@@ -146,7 +148,8 @@ def test_pipeline_under_mesh_vcf_identical(tmp_path):
             m.inv(80000, 3500)
         return m.finish()
 
-    haps = {'h1': SeqStore({'t1': mk(1, False)}), 'h2': SeqStore({'t2': mk(2, True)})}
+    tigs = {'h1': ('t1', mk(1, False)), 'h2': ('t2', mk(2, True))}
+    haps = {hap: SeqStore(dict([tig])) for hap, tig in tigs.items()}
     cfg = {'aligner_min_chain_score': 500}
 
     def run(mesh_devices, sub):
@@ -155,10 +158,11 @@ def test_pipeline_under_mesh_vcf_identical(tmp_path):
                         device='cpu')
         return _vcf_records(pipe.run_sample('S', haps)['vcf'])
 
+    ref_haps = {hap: RefSeqStore(dict([tig])) for hap, tig in tigs.items()}
     with reference_accel_branch():
-        want = _vcf_records(RefPipeline(SeqStore({'chr1': ref}), dict(cfg),
+        want = _vcf_records(RefPipeline(RefSeqStore({'chr1': ref}), dict(cfg),
                                         run_dir=str(tmp_path / 'ref'))
-                            .run_sample('S', haps)['vcf'])
+                            .run_sample('S', ref_haps)['vcf'])
     single = run(0, 'single')
     affine_dp.stats_reset()
     sharded = run(8, 'mesh')

@@ -19,11 +19,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from pav_tpu import seqcodec
-from pav_tpu.io.fasta import SeqStore, write_fasta
+from pav_tpu import seqcodec as ref_seqcodec
+from pav_tpu.io.fasta import SeqStore as RefSeqStore
 from pav_tpu.pipeline import _HAP_ARTIFACTS
 from pav_tpu.pipeline import Pipeline as RefPipeline
 from pav_tpu_torch import __main__ as cli
+from pav_tpu_torch import seqcodec
+from pav_tpu_torch.io.fasta import SeqStore, write_fasta
 from pav_tpu_torch.ops import dp_kernels
 from pav_tpu_torch.pipeline import Pipeline
 
@@ -57,8 +59,8 @@ def _genome():
     m2 = Mutator(ref)
     m2.snv(10000, alt=int(m1.truth[0]['alt'] == 'A'), rng=rng)
     m2.truth[-1]['alt'] = m1.truth[0]['alt']
-    m2.pieces[-1] = np.array([seqcodec.encode(m1.truth[0]['alt'])[0]], dtype=np.uint8)
-    m2.ins(50000, seqcodec.encode(m1.truth[3]['seq']))
+    m2.pieces[-1] = np.array([ref_seqcodec.encode(m1.truth[0]['alt'])[0]], dtype=np.uint8)
+    m2.ins(50000, ref_seqcodec.encode(m1.truth[3]['seq']))
     m2.snv(60000, rng=rng)
     m2.inv(100000, 4000)
     h2 = m2.finish()
@@ -74,13 +76,14 @@ def _vcf_text(path):
 @pytest.fixture(scope='module')
 def runs(tmp_path_factory):
     ref, h1, h2 = _genome()
-    haps = {'h1': SeqStore({'tig1_1': h1}), 'h2': SeqStore({'tig2_1': h2})}
+    ref_haps = {'h1': RefSeqStore({'tig1_1': h1}), 'h2': RefSeqStore({'tig2_1': h2})}
     ref_dir = str(tmp_path_factory.mktemp('ref_run'))
     with reference_accel_branch():
-        ref_res = RefPipeline(SeqStore({'chr1': ref}), dict(CONFIG),
-                              run_dir=ref_dir).run_sample('samp1', haps)
+        ref_res = RefPipeline(RefSeqStore({'chr1': ref}), dict(CONFIG),
+                              run_dir=ref_dir).run_sample('samp1', ref_haps)
     dp_kernels.launches_reset()
     port_dir = str(tmp_path_factory.mktemp('port_run'))
+    haps = {'h1': SeqStore({'tig1_1': h1}), 'h2': SeqStore({'tig2_1': h2})}
     port_res = Pipeline(SeqStore({'chr1': ref}), dict(CONFIG), run_dir=port_dir,
                         device='cpu').run_sample('samp1', haps)
     return (ref, h1, h2), ref_res, port_res, ref_dir, port_dir
@@ -172,11 +175,12 @@ def test_cli_matches_reference(runs, tmp_path):
 
 def test_cli_retains_heap_before_any_work(monkeypatch):
     """The CLI sets the reference's heap retention (pav_tpu/__main__.py
-    calls runtime.retain_heap(0) first) once, before the pipeline runs."""
-    import pav_tpu.runtime
+    calls runtime.retain_heap(0) first) once, before the pipeline runs,
+    through the port's own copy of ``runtime.retain_heap``."""
     import pav_tpu_torch.pipeline
+    import pav_tpu_torch.runtime
     calls = []
-    monkeypatch.setattr(pav_tpu.runtime, 'retain_heap',
+    monkeypatch.setattr(pav_tpu_torch.runtime, 'retain_heap',
                         lambda *a, **k: calls.append(('retain_heap', a, k)))
     monkeypatch.setattr(pav_tpu_torch.pipeline, 'run',
                         lambda *a, **k: calls.append(('run',)) or {})
