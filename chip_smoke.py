@@ -2,15 +2,21 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, parity, main path.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times
     python3 chip_smoke.py --dp-full-times
 
-With ``--dp-full-times`` it only times the full-width DP kernel of the
+With ``--kernel-times`` it only times the DP kernels and the walker of the
 checkout it sits in (phase 3's inputs and device timing, no parity) at
-every FULL_SHAPES entry and prints one JSON line {"root", "card",
-"shapes": [[B, max_m, max_n, ms, bound_ms, how], ...]}. A copy of this file
-placed in another checkout (``git archive`` of a parent commit) times that
-checkout's kernel: run the two in one call, in turns (A, B, B, A), to
-compare two versions on one card.
+every phase-3 shape and tape, and prints one JSON line {"root", "card",
+"kernels": {"dp_full": [[B, max_m, max_n, ms, bound_ms, how], ...],
+"dp_wave": [[B, max_m, max_n, width, ms, bound_ms, how], ...], "traceback":
+[[tape, ms, bound_ms, how, longest path, windowed ms, how], ...]}}; the
+walker's windowed design is timed beside the default at every tape where
+the checkout's library can force it (``pav_traceback_whole_max``).
+``--dp-full-times`` prints the dp_full part alone as {"root", "card",
+"shapes": [...]}. A copy of this file placed in another checkout (``git
+archive`` of a parent commit) times that checkout's kernels: run the two in
+one call, in turns (A, B, B, A), to compare two versions on one card.
 
 Phases (each prints its lines; any failure exits nonzero):
   1. environment: nvidia-smi name and power limit, versions, device name;
@@ -19,10 +25,14 @@ Phases (each prints its lines; any failure exits nonzero):
   3. kernels: each CUDA kernel against its plain PyTorch version, bit for bit,
      on CUDA tensors at the DP classes of the main path and, for the chain
      scan, at 64 slabs x 4096 anchors; the kernel's median time and the plain
-     version's time (one run, the compared one). The chain scan also alone
+     version's time (one run, the compared one). The walker runs on the
+     tapes of the first TRACED_FULL classes, of both WAVE_SHAPES and on
+     edge tapes (a whole-row deletion run, a whole-column insertion run,
+     padded items with m = n = 0, B = 1, a band exit that sets err); each
+     line gives the longest path and ns per step. The chain scan also alone
      at one slab of 2^20 anchors, beside the native host kernel it stands in
      for. Then the batched density on CUDA against the same call on the CPU
-     (decision level);
+     (decision level), with its bound at DENSITY_LONG;
   4. main path: a 16 Mbp reference and a diploid sample (the generator of
      bench.py, seed 11) from FASTA through ``python -m pav_tpu_torch
      --device cuda`` to a VCF; the full-width and traceback kernels must run.
@@ -30,7 +40,11 @@ Phases (each prints its lines; any failure exits nonzero):
      the same sample then runs again under a CUDA-activity trace (equal VCF
      records) for the device time by kernel;
   5. wavefront path: a 2 Mbp repeat-rich sample through the same CLI; the
-     wavefront kernel must run;
+     wavefront kernel must run. Wall and launches without a profiler; the
+     sample again under a CUDA-activity trace (equal VCF records) for the
+     device time by kernel and by launch grid. Then each sample's DP class
+     table (launches, items, cells, path lengths), each class timed alone,
+     and the per-run bounds of dp_full, dp_wave and the walker;
   6. parity: the e2e test genome through the CLI on cuda and on cpu (plain
      versions); identical VCF records;
   7. mesh: phase 4's h1 through ``Aligner.align_store`` unsharded and with
@@ -41,8 +55,9 @@ Phases (each prints its lines; any failure exits nonzero):
      the card; the table equals the native run's;
   9. cohort: two 16 Mbp diploid samples on one reference through one CLI
      process, then through a 2-process cohort (``--coordinator``,
-     ``--ship-artifacts``) on the one card; equal VCF records, kernels in
-     each process's profiler trace, and the samples-per-hour ratio.
+     ``--ship-artifacts``) on the one card, both without a profiler (the
+     samples-per-hour ratio), then the cohort again with ``--profile-dir``;
+     equal VCF records, kernels in each profiled process's trace.
 The line before last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and no network;
 imports no jax.
@@ -76,12 +91,15 @@ FULL_SHAPES = [(4096, 16, 16), (512, 256, 256), (64, 2048, 2048), (16, 16, 32768
                # width 129, a power-of-two class of the main path that
                # bench16 happens not to launch (dp_full_warp<32, 4>)
                (256, 16, 128)]
-TRACED_FULL = 4   # the first FULL_SHAPES whose tapes also go through the walker
+TRACED_FULL = 6   # the first FULL_SHAPES whose tapes also go through the walker
 WAVE_SHAPES = [(8, 8192, 8192, 513), (4, 8192, 8192, 2049)]
 CHAIN_SHAPE = (64, 4096)        # phase 3 chain scan parity: slabs x anchors
 CHAIN_LONG = 1 << 20            # phase 3 chain scan alone: one slab
 DENSITY_LONG = (4, 1 << 18)     # phase 3 density: regions x n_pad
 TRACE_KERNEL = 'dp_full'       # phase 9: a dp_full kernel must appear in each trace
+# Kernel names hold these (the walker's kernels are traceback_*).
+NEEDLES = {'dp_full': 'dp_full', 'dp_wave': 'dp_wave', 'traceback': 'traceback',
+           'chain_scan': 'chain_scan'}
 # Bounds (bound_ms): the larger of bytes over HBM and operations over the
 # peak rate of their type. NVIDIA H100 SXM (NVIDIA's data sheet): 3.35 TB/s
 # HBM3; 67 TFLOP/s float32 outside the tensor cores. int32, which the data
@@ -100,7 +118,10 @@ FP32_OPS_S = 67e12
 # neighbour selects (7): 49. Traceback: one step of the walk (the branches
 # of traceback_ref's step body): 40. Chain scan: per anchor and lookback
 # candidate (64): distances, limits, the log2, gap cost FMA, score and the
-# running argmax: 20 float32/int32 operations.
+# running argmax: 20 float32/int32 operations. Density, per region: nine
+# real FFTs of N = 4 n_pad points (3 histograms, 3 kernels, 3 inverse) at
+# 2.5 N log2 N float32 operations each (half a complex FFT's 5 N log2 N),
+# and the 3 (N/2 + 1) complex products at 6 each.
 OPS_FULL_CELL = 40
 OPS_WAVE_CELL = 49
 OPS_TRACE_STEP = 40
@@ -282,6 +303,76 @@ def dp_inputs(B, max_m, max_n, seed):
         q[b, m[b]:] = 4
         r[b, n[b]:] = 4
     return q, r, m, n
+
+
+def related_inputs(B, max_m, max_n, seed):
+    """Related pairs: a random reference of [max_n/2, max_n] bases and a
+    query that is it with SNVs and 1-8 base indels, cut to max_m; code-4
+    padding past each length."""
+    rng = np.random.default_rng(seed)
+    q = np.full((B, max_m), 4, np.int8)
+    r = np.full((B, max_n), 4, np.int8)
+    m = np.zeros(B, np.int32)
+    n = np.zeros(B, np.int32)
+    for b in range(B):
+        rr = rng.integers(0, 4, int(rng.integers(max_n // 2, max_n + 1))).astype(np.int8)
+        qq = rr.copy()
+        for _ in range(max(4, len(rr) // 64)):
+            p = int(rng.integers(0, max(len(qq) - 9, 1)))
+            x = rng.random()
+            if x < 0.6:
+                qq[p] = (qq[p] + 1) % 4
+            elif x < 0.8:
+                qq = np.delete(qq, slice(p, p + int(rng.integers(1, 9))))
+            else:
+                qq = np.insert(qq, p, rng.integers(0, 4, int(rng.integers(1, 9))).astype(np.int8))
+        qq = qq[:max_m]
+        q[b, :len(qq)], r[b, :len(rr)] = qq, rr
+        m[b], n[b] = len(qq), len(rr)
+    return q, r, m, n
+
+
+def edge_tapes(dev):
+    """Tapes that stress the walker's staged windows, made by the DP
+    kernels: [(label, tb, offs, q, r, m, n, wave)]."""
+    import torch
+    from pav_tpu_torch.ops import affine_dp, dp_kernels as K
+    rng = np.random.default_rng(900)
+    out = []
+
+    def full(label, *arrays):
+        q, r, m, n = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+        tb, offs = K.align_full(q, r, m, n, SCORING)
+        out.append((label, tb, offs, q, r, m, n, False))
+
+    # A whole-row deletion run: 16 query bases found inside 2048 reference
+    # bases, so the walk crosses the tape's columns window after window.
+    r = rng.integers(0, 4, (16, 2048)).astype(np.int8)
+    starts = rng.integers(0, 2048 - 16, 16)
+    q = np.stack([r[b, s:s + 16] for b, s in enumerate(starts)])
+    full('row deletion 16 x 16 x 2049', q, r, np.full(16, 16, np.int32),
+         np.full(16, 2048, np.int32))
+    # A whole-column insertion run: 16 reference bases inside a 2048-base
+    # query, so the walk goes straight up the rows.
+    q = rng.integers(0, 4, (8, 2048)).astype(np.int8)
+    r = np.stack([q[b, s:s + 16] for b, s in enumerate(rng.integers(0, 2048 - 16, 8))])
+    full('column insertion 8 x 2048 x 17', q, r, np.full(8, 2048, np.int32),
+         np.full(8, 16, np.int32))
+    # Padded items (m = n = 0) and pure edges (m = 0 < n, n = 0 < m).
+    q, r, m, n = dp_inputs(8, 64, 256, 901)
+    m[:3] = 0
+    n[:2] = 0
+    n[4] = 0
+    full('padded m = n = 0 8 x 64 x 257', q, r, m, n)
+    # B = 1: a related pair whose walk crosses many windows up-left.
+    full('related B=1 1 x 2048 x 2049', *related_inputs(1, 2048, 2048, 902))
+    # A band exit: a 384-lane wave tape walked within its first 128 lanes,
+    # so every walk leaves the band (err set) and reads clamped lanes.
+    q, r, m, n = (torch.from_numpy(a).to(dev) for a in related_inputs(4, 1024, 1024, 903))
+    doffs = affine_dp._wave_geometry(m, n, 1024, 1024, 2048, 384)
+    tb = K.align_wave(q, r, m, n, doffs, 384, SCORING)[:, :, :128].contiguous()
+    out.append(('band exit 4 x 1024 x 1024, 128 of 384 lanes', tb, doffs, q, r, m, n, True))
+    return out
 
 
 def chain_inputs(B, n, seed):
@@ -520,13 +611,29 @@ def wave_bound(B, mm, nn, ww):
                  B * (mm + nn + 8) + 4 * B * (mm + nn) + cells)
 
 
-def trace_bound(out):
-    """The walk of this run's paths: per step one tape byte and two base
-    codes read; the inputs' lengths and the fused output written."""
+def path_lengths(out):
+    """The path length of every row of a fused walker output."""
     lens = out[:, -5:-1].cpu().numpy().astype(np.int64)
-    steps = int((lens << (8 * np.arange(4, dtype=np.int64))).sum())
-    return bound(steps * OPS_TRACE_STEP, INT32_OPS_S,
-                 3 * steps + 8 * out.shape[0] + out.numel())
+    return (lens << (8 * np.arange(4, dtype=np.int64))).sum(axis=1)
+
+
+def walk_bound(steps, items, out_bytes):
+    """The walk of ``steps`` path steps: per step one tape byte and two base
+    codes read; the items' lengths read and the fused output written."""
+    return bound(steps * OPS_TRACE_STEP, INT32_OPS_S, 3 * steps + 8 * items + out_bytes)
+
+
+def trace_bound(out):
+    """walk_bound of one launch's paths, from its fused output."""
+    return walk_bound(int(path_lengths(out).sum()), out.shape[0], out.numel())
+
+
+def density_bound(count, n_pad):
+    """smoothed_states_batch of ``count`` regions at ``n_pad``: the FFT
+    operations (OPS note above); int8 labels in, int8 states out."""
+    N = 4 * n_pad
+    ops = count * (9 * 2.5 * N * np.log2(N) + 3 * (N // 2 + 1) * 6)
+    return bound(ops, FP32_OPS_S, count * (2 * n_pad + 12))
 
 
 # ------------------------------------------------------------------ phases
@@ -583,17 +690,24 @@ def phase_kernels(dev):
         if i == 0:
             stats['dp_wave'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
         tapes.append((f'wave B={B} {mm}x{nn} w{width}', tb, doffs, q, r, m, n, True))
+    tapes += edge_tapes(dev)
     for i, (label, tb, offs, q, r, m, n, wave) in enumerate(tapes):
         out = K.traceback(tb, offs, q, r, m, n, wave)
         ref, pms = timed_ms(lambda: K.traceback_ref(tb, offs, q, r, m, n, wave))
         if not torch.equal(out, ref):
             fail(f'traceback differs from traceback_ref on the {label} tape')
+        errs = int(ref[:, -1].sum().item())
+        if label.startswith('band exit') and errs != ref.shape[0]:
+            fail(f'only {errs} of {ref.shape[0]} walks left the band on the {label} tape')
         stats['traceback']['err'] = max(stats['traceback']['err'], max_abs_err(out, ref))
-        ms, how = device_ms(lambda: K.traceback(tb, offs, q, r, m, n, wave), 5, 'traceback')
+        ms, how = device_ms(lambda: K.traceback(tb, offs, q, r, m, n, wave), 5,
+                            NEEDLES['traceback'])
         bms, by = trace_bound(out)
+        longest = int(path_lengths(out).max())
         log(f'kernel traceback on {label}: bit-identical, {ms:.4f} ms device '
             f'({how}; plain {pms:.1f} ms, one run); bound {bms:.5f} ms ({by}), '
-            f'{100 * bms / ms:.1f}% of bound')
+            f'{100 * bms / ms:.1f}% of bound; longest path {longest} steps, '
+            f'{1e6 * ms / max(longest, 1):.1f} ns per step; err on {errs} items')
         if i == 0:
             stats['traceback'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
     return stats
@@ -682,10 +796,12 @@ def phase_density(dev):
             undecided += int((~decided).sum())
             if not np.array_equal(a[decided], b[decided]):
                 fail(f'density {label}: CUDA and CPU states differ at decided positions')
+        bms, by = density_bound(len(regions), pad)
         log(f'density {label}: decisions equal ({undecided} undecided positions), '
             f'max |dens diff| {float(np.abs(d_dev - d_cpu).max()):.3g}; '
             f'{ms:.2f} ms on the card (one call after a warm-up, host copies '
-            f'included), {cpu_ms:.1f} ms on the CPU')
+            f'included), {cpu_ms:.1f} ms on the CPU; bound {bms:.4f} ms ({by}: '
+            f'FFT float32 operations over 67 TFLOP/s)')
 
 
 def run_cli(argv):
@@ -729,25 +845,61 @@ def run_sample(work, name, ref, haps, device, extra=()):
     return run_dir, wall
 
 
-def dp_full_times(card, dev):
-    """--dp-full-times: device ms of this checkout's align_full at every
-    FULL_SHAPES entry on phase 3's inputs, beside its bound, as one JSON
-    line."""
+def kernel_times(card, dev, dp_full_only=False):
+    """--kernel-times (--dp-full-times: dp_full_only): device ms of this
+    checkout's align_full at every FULL_SHAPES entry, align_wave at every
+    WAVE_SHAPES entry and the walker on every phase-3 tape, on phase 3's
+    inputs, beside the bounds, as one JSON line."""
     import torch
-    from pav_tpu_torch.ops import dp_kernels as K
-    shapes = []
+    from pav_tpu_torch import _build
+    from pav_tpu_torch.ops import affine_dp, dp_kernels as K
+    rows = {'dp_full': [], 'dp_wave': [], 'traceback': []}
+    tapes = []
     for i, (B, mm, nn) in enumerate(FULL_SHAPES):
         q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(B, mm, nn, 100 + i))
         ms, how = device_ms(lambda: K.align_full(q, r, m, n, SCORING),
-                            5 if mm * nn >= 1 << 22 else 20, 'dp_full')
-        shapes.append([B, mm, nn, ms, full_bound(B, mm, nn)[0], how])
-    print(json.dumps({'root': ROOT, 'card': card, 'shapes': shapes}), flush=True)
+                            5 if mm * nn >= 1 << 22 else 20, NEEDLES['dp_full'])
+        rows['dp_full'].append([B, mm, nn, ms, full_bound(B, mm, nn)[0], how])
+        if i < TRACED_FULL:
+            tapes.append((f'full B={B} {mm}x{nn + 1}', *K.align_full(q, r, m, n, SCORING),
+                          q, r, m, n, False))
+    if dp_full_only:
+        print(json.dumps({'root': ROOT, 'card': card, 'shapes': rows['dp_full']}), flush=True)
+        return 0
+    for i, (B, mm, nn, width) in enumerate(WAVE_SHAPES):
+        q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(B, mm, nn, 200 + i))
+        ww = affine_dp._wave_width(width)
+        doffs = affine_dp._wave_geometry(m, n, mm, nn, mm + nn, ww)
+
+        ms, how = device_ms(lambda: K.align_wave(q, r, m, n, doffs, ww, SCORING), 3,
+                            NEEDLES['dp_wave'])
+        rows['dp_wave'].append([B, mm, nn, width, ms, wave_bound(B, mm, nn, ww)[0], how])
+        tapes.append((f'wave B={B} {mm}x{nn} w{width}', K.align_wave(q, r, m, n, doffs, ww, SCORING),
+                      doffs, q, r, m, n, True))
+    tapes += edge_tapes(dev)
+    # Where the library can force it, the walker's windowed design at every
+    # tape too (the default stages small tapes whole).
+    whole_max = getattr(_build.lib(), 'pav_traceback_whole_max', None)
+    for label, tb, offs, q, r, m, n, wave in tapes:
+        def walk():
+            return K.traceback(tb, offs, q, r, m, n, wave)
+        out = walk()
+        ms, how = device_ms(walk, 5, NEEDLES['traceback'])
+        row = [label, ms, trace_bound(out)[0], how, int(path_lengths(out).max())]
+        if whole_max is not None:
+            old = whole_max(0)
+            row += list(device_ms(walk, 5, NEEDLES['traceback']))
+            whole_max(old)
+        rows['traceback'].append(row)
+    print(json.dumps({'root': ROOT, 'card': card, 'kernels': rows}), flush=True)
     return 0
 
 
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--kernel-times', action='store_true',
+                    help="only time this checkout's DP kernels and walker at phase 3's shapes")
     ap.add_argument('--dp-full-times', action='store_true',
                     help="only time this checkout's full-width DP kernel at FULL_SHAPES")
     args = ap.parse_args()
@@ -766,8 +918,8 @@ def main():
         fail(f'nvidia-smi failed: {smi.stderr.strip()}')
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device(DEVICE, 0) if DEVICE == 'cuda' else torch.device(DEVICE)
-    if args.dp_full_times:
-        return dp_full_times(card, dev)
+    if args.kernel_times or args.dp_full_times:
+        return kernel_times(card, dev, dp_full_only=not args.kernel_times)
     global seqcodec
     from pav_tpu_torch import seqcodec
     log(card)
@@ -842,42 +994,94 @@ def trace_launch_shapes(path, needle):
     return out
 
 
-def dp_classes(classes, dev):
-    """bench16's DP classes (affine_dp.STATS['classes']): launches, items
-    and padded cells; each full-width class's kernel timed alone at its shape
-    (device time; the kernel's work does not depend on the data), times its
-    resolved launches."""
+def dp_classes(label, classes, dev):
+    """A sample's DP classes (affine_dp.STATS['classes']): launches, items,
+    padded cells and path lengths; each class's DP kernel timed alone at its
+    shape (device time; its work does not depend on the data) times its
+    resolved launches; and the run's bounds: dp_full and dp_wave over their
+    padded cells, the walker over the run's path steps."""
     import torch
-    from pav_tpu_torch.ops import dp_kernels as K
+    from pav_tpu_torch.ops import affine_dp, dp_kernels as K
     rows = []
-    for (mm, nn, width, b_pad), (launches, _, items, cells, real) in classes.items():
-        kind = 'full' if width == nn + 1 else 'wave'
-        ms = None
-        if kind == 'full':
-            q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(b_pad, mm, nn, 300))
+    for (mm, nn, width, b_pad), (launches, _, items, cells, real, steps, longest) \
+            in classes.items():
+        q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(b_pad, mm, nn, 300))
+        if width == nn + 1:
+            kind, ww = 'full', width
             ms, _ = device_ms(lambda: K.align_full(q, r, m, n, SCORING),
-                              5 if mm * nn >= 1 << 22 else 20, 'dp_full')
-        rows.append((kind, b_pad, mm, nn, width, launches, items, cells, real, ms))
-    rows.sort(key=lambda x: -(x[5] * x[9] if x[9] else 0))
-    total = sum(x[5] * x[9] for x in rows if x[9])
-    for kind, b_pad, mm, nn, width, launches, items, cells, real, ms in rows:
-        extra = (f', {ms:.4f} ms per launch, {launches * ms:.4f} ms in all '
-                 f'({100 * launches * ms / total:.1f}%)' if ms else '')
-        log(f'bench16 class {kind} B={b_pad} {mm}x{width}: {launches} launches, {items} items, '
-            f'{cells} padded cells ({real} real){extra}')
-    log(f'bench16 dp_full time from the class table: {total:.4f} ms')
-    cells = sum(x[7] for x in rows if x[0] == 'full')
-    nbytes = cells + sum(x[5] * x[1] * (x[2] + x[3] + 8) for x in rows if x[0] == 'full')
-    bms, by = bound(cells * OPS_FULL_CELL, INT32_OPS_S, nbytes)
-    log(f'bench16 dp_full bound from the class table: {cells} padded cells x '
-        f'{OPS_FULL_CELL} ops, {nbytes} bytes: {bms:.4f} ms ({by})')
+                              5 if mm * nn >= 1 << 22 else 20, NEEDLES['dp_full'])
+            bms = full_bound(b_pad, mm, nn)[0]
+        else:
+            kind, ww = 'wave', affine_dp._wave_width(width)
+            doffs = affine_dp._wave_geometry(m, n, mm, nn, mm + nn, ww)
+            ms, _ = device_ms(lambda: K.align_wave(q, r, m, n, doffs, ww, SCORING), 3,
+                              NEEDLES['dp_wave'])
+            bms = wave_bound(b_pad, mm, nn, ww)[0]
+        rows.append((kind, b_pad, mm, nn, width, ww, launches, items, cells, real, steps,
+                     longest, ms, bms))
+    rows.sort(key=lambda x: -x[6] * x[12])
+    totals = {}
+    for kind, b_pad, mm, nn, width, ww, launches, items, cells, real, steps, longest, ms, \
+            bms in rows:
+        totals[kind] = totals.get(kind, 0.0) + launches * ms
+        log(f'{label} class {kind} B={b_pad} {mm}x{width} ({ww} lanes): {launches} launches, '
+            f'{items} items, {cells} padded cells ({real} real), path steps {steps} '
+            f'(longest {longest}); {ms:.4f} ms per launch, {launches * ms:.4f} ms in all')
+    for kind in ('full', 'wave'):
+        mine = [x for x in rows if x[0] == kind]
+        if not mine:
+            continue
+        bms = sum(x[6] * x[13] for x in mine)
+        cells = sum(x[8] for x in mine)
+        log(f'{label} dp_{kind}: {totals[kind]:.4f} ms from the class table; bound '
+            f'{bms:.4f} ms over {cells} padded cells (operations)')
+    steps = sum(x[10] for x in rows)
+    items = sum(x[6] * x[1] for x in rows)
+    out_bytes = sum(x[6] * x[1] * (K.trace_len(x[2], x[3]) // 4 + 5) for x in rows)
+    bms, by = walk_bound(steps, items, out_bytes)
+    log(f'{label} traceback bound: {steps} path steps (longest {max(x[11] for x in rows)}) in '
+        f'{sum(x[6] for x in rows)} launches, {out_bytes} output bytes: {bms:.4f} ms ({by})')
+
+
+def traced_run(work, name, ref, haps, want, wall_note):
+    """Run a sample again under a CUDA-activity trace: its VCF records must
+    equal ``want``; logs the device time by kernel and by launch grid of the
+    walker and the DP kernels. Returns the traced run's launches."""
+    import torch
+    from pav_tpu_torch.ops import chain_scan, dp_kernels
+    dp_kernels.launches_reset()
+    chain_scan.launches_reset()
+    trace = os.path.join(work, f'{name}_trace.json')
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_dir_t, wall_t = run_sample(work, f'{name}t', ref, haps, DEVICE)
+    launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    prof.export_chrome_trace(trace)
+    if vcf_records(os.path.join(run_dir_t, f'{name}t.vcf.gz')) != want:
+        fail(f'the traced {name} run wrote other VCF records than the untraced one')
+    log(f'{name} again under a CUDA-activity trace: wall {wall_t:.2f} s ({wall_note}); '
+        f'launches {launches}; VCF records equal')
+    by_kernel = trace_kernel_ms(trace)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    log(f'{name} device time by kernel ({busy:.3f} ms busy over {1e3 * wall_t:.0f} ms traced '
+        f'wall, {100 * busy / (1e3 * wall_t):.3f}%): ' + json.dumps(
+            {k: [round(v[0], 4), v[1]] for k, v in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1][0])[:25]}))
+    for kname, needle in (*NEEDLES.items(), ('density (cuFFT)', 'fft')):
+        hits = [v for k, v in by_kernel.items() if needle in k]
+        log(f'{name} {kname}: {sum(c for _, c in hits)} device launches, '
+            f'{sum(ms for ms, _ in hits):.4f} ms device time (trace)')
+    for needle in ('dp_full', 'dp_wave', 'traceback'):
+        for (kname, grid, block), (ms, count) in sorted(
+                trace_launch_shapes(trace, needle).items(), key=lambda kv: -kv[1][0]):
+            log(f'{name} trace {kname} grid {list(grid)} block {list(block)}: '
+                f'{count} launches, {ms:.4f} ms')
+    return launches
 
 
 def drive_main_path(work, card, dev):
     """Phases 4-6; returns the kernel launches of phases 4 and 5 (each read
     from 0 just before its run to just after it), and phase 4's genome
     (ref, h1, h2)."""
-    import torch
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
 
     # 4. main path, 16 Mbp diploid
@@ -905,48 +1109,29 @@ def drive_main_path(work, card, dev):
         fail(f'the main path did not launch the full/traceback kernels: {main_launches}')
 
     # The same sample again under a CUDA-activity trace: device time by kernel.
-    dp_kernels.launches_reset()
-    chain_scan.launches_reset()
-    trace = os.path.join(work, 'bench16_trace.json')
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run_dir_t, wall_t = run_sample(work, 'bench16t', ref, haps, DEVICE)
-    traced_launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
-    prof.export_chrome_trace(trace)
-    if vcf_records(os.path.join(run_dir_t, 'bench16t.vcf.gz')) != recs:
-        fail('the traced bench16 run wrote other VCF records than the untraced one')
-    log(f'bench16 again under a CUDA-activity trace: wall {wall_t:.2f} s; launches '
-        f'{traced_launches}; VCF records equal')
-    by_kernel = trace_kernel_ms(trace)
-    busy = sum(ms for ms, _ in by_kernel.values())
-    log(f'bench16 device time by kernel ({busy:.3f} ms busy over {1e3 * wall_t:.0f} ms traced '
-        f'wall, {100 * busy / (1e3 * wall_t):.3f}%): ' + json.dumps(
-            {k: [round(v[0], 4), v[1]] for k, v in sorted(
-                by_kernel.items(), key=lambda kv: -kv[1][0])[:25]}))
-    for name, needle in (('dp_full', 'dp_full'), ('dp_wave', 'dp_wave'),
-                         ('traceback', 'traceback_kernel'),
-                         ('chain_scan', 'chain_scan'), ('density (cuFFT)', 'fft')):
-        hits = [v for k, v in by_kernel.items() if needle in k]
-        log(f'bench16 {name}: {sum(c for _, c in hits)} device launches, '
-            f'{sum(ms for ms, _ in hits):.4f} ms device time (trace)')
-    for (kname, grid, block), (ms, count) in sorted(
-            trace_launch_shapes(trace, 'dp_full').items(), key=lambda kv: -kv[1][0]):
-        log(f'bench16 trace {kname} grid {list(grid)} block {list(block)}: '
-            f'{count} launches, {ms:.4f} ms')
+    traced_run(work, 'bench16', ref, haps, recs, 'a second run')
 
     # 5. repeat-rich sample: the wavefront band kernel
     rref, rhap = repeat_genome(REPEAT_REF_LEN, 18)
+    rhaps = {'h1': ('rtig1', rhap)}
     dp_kernels.launches_reset()
     chain_scan.launches_reset()
-    run_dir, wall = run_sample(work, 'rep2', rref, {'h1': ('rtig1', rhap)}, DEVICE)
+    affine_dp.stats_reset()
+    run_dir, wall = run_sample(work, 'rep2', rref, rhaps, DEVICE)
     rep_launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    rep_classes = {k: tuple(v) for k, v in affine_dp.STATS['classes'].items()}
     for k in main_launches:
         main_launches[k] += rep_launches[k]
-    log(f'repeat-rich {len(rref) / 1e6:g} Mbp: wall {wall:.2f} s, {len(rhap) / 1e6 / wall:.3f} contig '
-        f'Mbp/s on {card}; launches {rep_launches}')
+    rep_recs = vcf_records(os.path.join(run_dir, 'rep2.vcf.gz'))
+    log(f'repeat-rich {len(rref) / 1e6:g} Mbp: {len(rep_recs)} VCF records, wall {wall:.2f} s '
+        f'(no profiler), {len(rhap) / 1e6 / wall:.3f} contig Mbp/s on {card}; launches '
+        f'{rep_launches}')
     log('stage seconds: ' + json.dumps(stage_seconds(run_dir, 'rep2')))
     if rep_launches['wave'] <= 0:
         fail(f'the repeat-rich sample did not launch the wave kernel: {rep_launches}')
-    dp_classes(classes, dev)
+    traced_run(work, 'rep2', rref, rhaps, rep_recs, 'a second run')
+    dp_classes('bench16', classes, dev)
+    dp_classes('rep2', rep_classes, dev)
 
     # 6. cuda vs cpu on the e2e genome
     ref, h1, h2 = e2e_genome()
@@ -1051,9 +1236,10 @@ def _wait_all(procs, timeout):
 
 def phase_cohort(work, card, genome):
     """Two 16 Mbp diploid samples on one reference: (a) one CLI process,
-    (b) a 2-process cohort on the one card with per-process run and profile
-    directories. Both forms run under --profile-dir, so their walls carry the
-    same instrumentation."""
+    (b) a 2-process cohort on the one card, both without a profiler (the
+    walls and the samples-per-hour ratio; a profiled run runs its pools
+    inline), then (c) the cohort again with per-process run and profile
+    directories, whose traces must hold the kernels."""
     d = os.path.join(work, 'cohort')
     os.makedirs(d)
     ref, a1, a2 = genome
@@ -1072,20 +1258,24 @@ def phase_cohort(work, card, genome):
 
     t0 = time.time()
     (out_a,) = _wait_all([(subprocess.Popen(
-        base + ['--run-dir', 'run_single', '--profile-dir', 'prof_single'], cwd=d,
+        base + ['--run-dir', 'run_single'], cwd=d,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
         'single CLI process')], 900)
     wall_a = time.time() - t0
 
-    port = _free_port()
+    def cohort(tag, extra):
+        port = _free_port()
+        return _wait_all([(subprocess.Popen(
+            base + ['--run-dir', f'{tag}{pid}', *extra(pid),
+                    '--coordinator', f'localhost:{port}', '--num-processes', '2',
+                    '--process-id', str(pid), '--ship-artifacts'], cwd=d, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            f'cohort process {pid}') for pid in (0, 1)], 900)
+
     t0 = time.time()
-    outs = _wait_all([(subprocess.Popen(
-        base + ['--run-dir', f'run{pid}', '--profile-dir', f'prof{pid}',
-                '--coordinator', f'localhost:{port}', '--num-processes', '2',
-                '--process-id', str(pid), '--ship-artifacts'], cwd=d, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
-        f'cohort process {pid}') for pid in (0, 1)], 900)
+    outs = cohort('run', lambda pid: [])
     wall_b = time.time() - t0
+    outs_p = cohort('prun', lambda pid: ['--profile-dir', f'prof{pid}'])
 
     for name in ('cohA', 'cohB'):
         if f'{name}:' not in out_a:
@@ -1093,20 +1283,21 @@ def phase_cohort(work, card, genome):
         want = vcf_records(os.path.join(d, 'run_single', f'{name}.vcf.gz'))
         if not want:
             fail(f'cohort: the single-process VCF of {name} has no records')
-        for pid, out in enumerate(outs):
-            if f'{name}:' not in out or 'ERROR' in out:
-                fail(f'cohort process {pid} did not print the full manifest:\n{out}')
-            got = vcf_records(os.path.join(d, f'run{pid}', f'{name}.vcf.gz'))
-            if got != want:
-                fail(f'cohort: run{pid}/{name} VCF differs from the single-process run')
+        for tag, runs in (('run', outs), ('prun', outs_p)):
+            for pid, out in enumerate(runs):
+                if f'{name}:' not in out or 'ERROR' in out:
+                    fail(f'cohort process {pid} did not print the full manifest:\n{out}')
+                got = vcf_records(os.path.join(d, f'{tag}{pid}', f'{name}.vcf.gz'))
+                if got != want:
+                    fail(f'cohort: {tag}{pid}/{name} VCF differs from the single-process run')
     for pid in (0, 1):
         with open(os.path.join(d, f'prof{pid}', 'trace.json')) as fh:
             if TRACE_KERNEL not in fh.read():
                 fail(f'cohort process {pid}: {TRACE_KERNEL} not in its profiler trace')
-    log(f'cohort: 2 x 16 Mbp diploid samples; one process {wall_a:.2f} s, '
+    log(f'cohort: 2 x 16 Mbp diploid samples, no profiler; one process {wall_a:.2f} s, '
         f'2-process cohort on one card {wall_b:.2f} s: samples/hour ratio '
-        f'{wall_a / wall_b:.3f}; VCFs equal in both run dirs; {TRACE_KERNEL} '
-        f'in both traces; on {card}')
+        f'{wall_a / wall_b:.3f}; VCFs equal in every run dir; {TRACE_KERNEL} '
+        f'in both traces of the profiled cohort; on {card}')
 
 
 if __name__ == '__main__':

@@ -46,6 +46,8 @@ SIGNATURES = {
     # tb, offs, q, r, m, n, out, B, rows, w_dim, max_m, max_n, L, wave, stream
     'pav_traceback': ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _P], _I),
+    # bytes (-1 reads) -> the previous largest item the walker stages whole
+    'pav_traceback_whole_max': ([_I], _I),
     # qpos, rpos, group, f, parent, B, n, lookback, k,
     # max_dist, max_gap_diff, gap_scale, stream
     'pav_chain_scan': ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P], _I),

@@ -366,8 +366,8 @@ class Aligner:
         if len(names) > 1:
             # Contigs are independent until DP batching; the hot pieces
             # (native sketch/chain, numpy) release the GIL.
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(max_workers=min(4, len(names))) as pool:
+            from ...parallel import pools
+            with pools.executor(min(4, len(names))) as pool:
                 results = list(pool.map(plan_contig, names))
         else:
             results = [plan_contig(n) for n in names]

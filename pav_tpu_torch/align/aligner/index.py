@@ -22,8 +22,12 @@ _POOL_LOCK = _threading.Lock()
 def _pool():
     """Shared sketching pool (the native sketcher releases the GIL).
     Double-checked lock: concurrent contig-planning threads must never race
-    two executors into existence (the loser would leak idle workers)."""
+    two executors into existence (the loser would leak idle workers).
+    Under ``parallel.pools.inline()`` the sketches run in the caller."""
     global _POOL
+    from ...parallel import pools
+    if pools.inlined():
+        return pools.InlineExecutor()
     if _POOL is None:
         with _POOL_LOCK:
             if _POOL is None:

@@ -249,9 +249,9 @@ def scan_for_events(df, ref_store, qry_store, hap, k_size=31, n_index=None,
     # of others (same threading model as the inv_scan stage).
     memo = {}
     if len(cand_regions) > 1:
-        from concurrent.futures import ThreadPoolExecutor
-
         import io as _io
+
+        from ..parallel import pools
 
         def scan_capture(region):
             # Catch EVERY exception, not just RuntimeError: the phase-1
@@ -268,7 +268,7 @@ def scan_for_events(df, ref_store, qry_store, hap, k_size=31, n_index=None,
             except Exception as ex:
                 return ('raise', ex, buf.getvalue())
 
-        with ThreadPoolExecutor(max_workers=min(4, len(cand_regions))) as pool:
+        with pools.executor(min(4, len(cand_regions))) as pool:
             for key, result in zip(cand_keys, pool.map(scan_capture, cand_regions)):
                 memo[key] = result
 

@@ -43,9 +43,11 @@ from . import dp_kernels
 # DP cells (rows * max_m * width) accumulated per mesh device over every
 # sharded launch: max/min of shard_cells is the measured work balance.
 # classes: (max_m, max_n, width, B_pad) ->
-#   [launches, resolve_s, items, cells_pad, cells_real]
+#   [launches, resolve_s, items, cells_pad, cells_real, path_sum, path_max]
 # cells_pad  = B_pad*max_m*width per launch (what the kernels scan)
 # cells_real = sum_i m_i*min(n_i+1, width)  (what the problems need)
+# path_sum, path_max = sum and maximum of the items' traceback path lengths
+#   (the walker's steps; padding rows excluded)
 STATS = {'launches': 0, 'items': 0, 'h2d_bytes': 0, 'd2h_bytes': 0,
          'resolve_s': 0.0, 'dispatch_s': 0.0,
          'sharded_puts': 0, 'mesh_devices': 0, 'shard_rows': (),
@@ -348,19 +350,21 @@ class BandedAligner:
                 done.synchronize()
             buf = host.numpy()
             dt = time.time() - t1
+            pk = buf[:, :-5]
+            pl = (buf[:, -5:-1].astype(np.int32)
+                  << np.arange(4, dtype=np.int32) * 8).sum(axis=1)
             with _STATS_LOCK:
                 STATS['resolve_s'] += dt
                 STATS['d2h_bytes'] += buf.nbytes
                 cls = STATS['classes'].setdefault(
-                    (max_m, max_n, width, B_pad), [0, 0.0, 0, 0, 0])
+                    (max_m, max_n, width, B_pad), [0, 0.0, 0, 0, 0, 0, 0])
                 cls[0] += 1
                 cls[1] += dt
                 cls[2] += B
                 cls[3] += B_pad * max_m * width
                 cls[4] += cells_real
-            pk = buf[:, :-5]
-            pl = (buf[:, -5:-1].astype(np.int32)
-                  << np.arange(4, dtype=np.int32) * 8).sum(axis=1)
+                cls[5] += int(pl.sum(dtype=np.int64))
+                cls[6] = max(cls[6], int(pl.max(initial=0)))
             er = buf[:, -1]
             if er.any() and width >= max_n + 1:
                 raise RuntimeError('Traceback failed at full width (program bug)')

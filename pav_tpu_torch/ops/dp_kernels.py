@@ -202,8 +202,8 @@ def align_wave(q, r, m, n, doffs, ww, sc):
     D = max_m + max_n
     _check('doffs', doffs, torch.int32, (B, D), dev)
     ww = int(ww)
-    if ww < 1:
-        raise ValueError('ww must be >= 1')
+    if ww < 1 or ww % 4:
+        raise ValueError(f'ww must be a positive multiple of 4 (lanes per thread), not {ww}')
     if not _on_card(dev):
         return align_wave_ref(q, r, m, n, doffs, ww, sc)
     lib = _build.lib()
@@ -317,8 +317,10 @@ def traceback(tb, offs, q, r, m, n, wave):
     length, err byte (``affine_dp._align_and_trace_impl``'s output).
 
     :param tb: uint8 [B, rows, w_dim] tape; rows are DP rows (``wave``
-        false) or anti-diagonals (``wave`` true).
-    :param offs: int32 [B, rows] band offset of each tape row.
+        false: the tape of ``align_full``, w_dim = max_n + 1) or
+        anti-diagonals (``wave`` true).
+    :param offs: int32 [B, rows] band offset of each tape row (zeros for
+        ``align_full``'s tape, which the kernel does not read).
     """
     dev = _check_seqs(q, r, m, n)
     B, max_m = q.shape
@@ -331,6 +333,8 @@ def traceback(tb, offs, q, r, m, n, wave):
     need = max_m + max_n if wave else max_m
     if rows < need or w_dim < 1:
         raise ValueError(f'tape has {rows} rows x {w_dim} lanes, needs {need} rows')
+    if not wave and w_dim != max_n + 1:
+        raise ValueError(f'a full-width tape has max_n + 1 = {max_n + 1} lanes, not {w_dim}')
     L = trace_len(max_m, max_n)
     if not _on_card(dev):
         return traceback_ref(tb, offs, q, r, m, n, wave)

@@ -46,6 +46,7 @@ from .util import build_interval_index_by_chrom
 from .call import inv as inv_mod, largesv
 from .device import resolve_device
 from .ops.affine_dp import BandedAligner
+from .parallel import pools
 from .parallel.mesh import make_mesh
 
 
@@ -129,13 +130,16 @@ class Pipeline:
         self.log.flush()
 
     def _timed(self, label, stage):
+        """Time a stage into ``timings``; under a profiler the stage is a
+        span named ``label:stage``."""
         import contextlib
         import time as _time
 
         @contextlib.contextmanager
         def cm():
             t0 = _time.time()
-            yield
+            with torch.profiler.record_function(f'{label}:{stage}'):
+                yield
             self.timings[(label, stage)] = round(_time.time() - t0, 3)
         return cm()
 
@@ -308,8 +312,7 @@ class Pipeline:
                 return None
 
         if len(flag_rows) > 1:
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(max_workers=min(4, len(flag_rows))) as pool:
+            with pools.executor(min(4, len(flag_rows))) as pool:
                 inv_calls = list(pool.map(scan_one, flag_rows))
         else:
             inv_calls = [scan_one(r) for r in flag_rows]
@@ -427,11 +430,10 @@ class Pipeline:
         # Haplotypes run concurrently: the hot kernels (native C++, device DP)
         # release the GIL, so two haplotype threads overlap host and device
         # work (the reference fans haplotypes out as independent cluster jobs:
-        # SURVEY.md §2.8).
+        # SURVEY.md §2.8). Under a profile they run in turn (parallel.pools).
         if len(to_run) > 1:
-            from concurrent.futures import ThreadPoolExecutor
             self.aligner  # build the shared index before the threads start
-            with ThreadPoolExecutor(max_workers=min(len(to_run), 4)) as pool:
+            with pools.executor(min(len(to_run), 4)) as pool:
                 futures = {
                     hap: pool.submit(self.run_haplotype, store, hap, cfg,
                                      f'{asm_name}/{hap}',
@@ -453,11 +455,8 @@ class Pipeline:
         # GIL). Only the merged_* tables wait for the merge.
         art_thread = None
         if self.run_dir:
-            import threading
-            art_thread = threading.Thread(
-                target=self._write_hap_artifacts,
-                args=(asm_name, hap_results, dict(to_run)), daemon=True)
-            art_thread.start()
+            art_thread = pools.start_thread(
+                self._write_hap_artifacts, (asm_name, hap_results, dict(to_run)))
 
         with self._timed(asm_name, 'merge'):
             merged = self._merge_all(asm_name, hap_results, hap_list, cfg)
@@ -538,8 +537,6 @@ class Pipeline:
         chromosome batches (reference: rules/call.snakefile:856-905 packs
         chromosomes into MERGE_BATCH_COUNT bins and merges each as an
         independent job; here each bin is a thread-pool task)."""
-        from concurrent.futures import ThreadPoolExecutor
-
         from .call.batching import merge_batch_table
 
         batch_df = merge_batch_table(dict(self.ref_store.fai()))
@@ -582,7 +579,7 @@ class Pipeline:
         self._logmsg(
             f'{asm_name}: merging {len(jobs)} callset tiers across {hap_list} '
             f'({len(chrom_batches)} chromosome batches)')
-        with ThreadPoolExecutor(max_workers=4) as pool:
+        with pools.executor(4) as pool:
             futures = {
                 key: pool.submit(run_job, bed_list, callable_list, strategy)
                 for key, bed_list, callable_list, strategy in jobs
@@ -686,7 +683,11 @@ def run(ref_path, asm_table_path, config=None, run_dir='pav_run', samples=None,
 
     :param profile_dir: When set, wraps the run in a torch.profiler trace of
         the host and (on CUDA) the device, written to
-        ``profile_dir/trace.json`` (Chrome trace format).
+        ``profile_dir/trace.json`` (Chrome trace format). The profiler
+        records one thread's host ops, so the port's pools then run their
+        tasks in this thread (``parallel.pools.inline``): every stage of
+        every haplotype is in the trace, as a ``sample/hap:stage`` span, and
+        the haplotypes no longer overlap.
     :param device: torch device; None takes the config key ``device``
         (default ``cuda``).
     """
@@ -697,14 +698,16 @@ def run(ref_path, asm_table_path, config=None, run_dir='pav_run', samples=None,
 
     import contextlib
     trace_cm = contextlib.nullcontext()
+    inline_cm = contextlib.nullcontext()
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if pipeline.device.type == 'cuda':
             activities.append(ProfilerActivity.CUDA)
         trace_cm = profile(activities=activities)
+        inline_cm = pools.inline()
 
-    with trace_cm as prof:
+    with trace_cm as prof, inline_cm:
         for asm_name in (samples or asm_table.index):
             local_cfg = override_config(cfg, get_asm_config_override(asm_table, asm_name))
             haps = get_hap_list(asm_table, asm_name)

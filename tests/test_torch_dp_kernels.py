@@ -265,3 +265,37 @@ def test_wrappers_check_inputs():
         K.traceback(tb[:, :8], offs[:, :8], q, r, m, n, False)
     with pytest.raises(ValueError):
         K.align_wave(q, r, m, n, torch.zeros((4, 31), dtype=torch.int32), 128, sc)
+    # The walker reads a full-width tape as align_full's (max_n + 1 lanes,
+    # zero offsets); the wave kernel takes bands of whole 4-lane groups.
+    with pytest.raises(ValueError):
+        K.traceback(tb[:, :, :16].contiguous(), offs, q, r, m, n, False)
+    with pytest.raises(ValueError):
+        K.align_wave(q, r, m, n, torch.zeros((4, 32), dtype=torch.int32), 130, sc)
+
+
+@pytest.mark.parametrize('width', [65, 17], ids=['full', 'wave'])
+def test_class_stats_count_path_lengths(width):
+    """STATS['classes'] keeps, per class, the sum and the maximum of the
+    items' path lengths: those of the reference's fused buffer for the same
+    padded batch (padding rows excluded)."""
+    rng = np.random.default_rng(51)
+    pairs = []
+    for _ in range(11):
+        rr = random_seq(int(rng.integers(20, 64)), rng)
+        pairs.append((_mutate(rr, rng)[:64], rr))
+    TA.stats_reset()
+    TA.BandedAligner(device='cpu').align_batch(pairs, width=width, pad_to=64)
+    ((max_m, max_n, w, b_pad), cls), = TA.STATS['classes'].items()
+    q = np.full((b_pad, max_m), 4, np.int8)
+    r = np.full((b_pad, max_n), 4, np.int8)
+    m = np.ones(b_pad, np.int32)
+    n = np.ones(b_pad, np.int32)
+    for b, (qq, rr) in enumerate(pairs):
+        q[b, :len(qq)], r[b, :len(rr)] = qq, rr
+        m[b], n[b] = len(qq), len(rr)
+    buf = np.asarray(A._align_and_trace(q, r, m, n, max_m, w, *SCORINGS[0],
+                                        backend_kind='xla-wave'))[:len(pairs)]
+    pl = (buf[:, -5:-1].astype(np.int64) << (8 * np.arange(4))).sum(axis=1)
+    assert (w < max_n + 1) == (width == 17)
+    assert cls[2] == len(pairs)
+    assert cls[5] == int(pl.sum()) and cls[6] == int(pl.max())

@@ -181,3 +181,102 @@ def test_sharded_dp_matches_unsharded_on_card(dev):
     assert affine_dp.STATS['sharded_puts'] == 4
     assert affine_dp.STATS['shard_rows'] == (64, 64)
     assert got == want
+
+
+@pytest.fixture(scope='module')
+def lib(dev):
+    from pav_tpu_torch import _build
+    return _build.lib()
+
+
+@pytest.fixture(scope='module')
+def edge_tapes(dev):
+    return chip_smoke.edge_tapes(dev)
+
+
+@pytest.mark.parametrize('design', ['default', 'windows'])
+@pytest.mark.parametrize('idx', range(5))
+def test_traceback_edge_tapes_match_plain(lib, edge_tapes, idx, design):
+    """The walker on chip_smoke.py's edge tapes (a whole-row deletion run, a
+    whole-column insertion run, padded items with m = n = 0, B = 1 crossing
+    many windows, a band exit that sets err), in its default design and with
+    every tape walked through staged windows."""
+    label, tb, offs, q, r, m, n, wave = edge_tapes[idx]
+    old = lib.pav_traceback_whole_max(0 if design == 'windows' else -1)
+    try:
+        out = K.traceback(tb, offs, q, r, m, n, wave)
+        torch.cuda.synchronize()
+    finally:
+        lib.pav_traceback_whole_max(old)
+    ref = K.traceback_ref(tb, offs, q, r, m, n, wave)
+    assert torch.equal(out, ref), label
+    if label.startswith('band exit'):
+        assert bool(ref[:, -1].all())
+
+
+@pytest.mark.parametrize('shape', chip_smoke.FULL_SHAPES[:chip_smoke.TRACED_FULL], ids=str)
+def test_traceback_windows_on_phase3_tapes(dev, lib, shape):
+    """Every phase-3 walker tape through staged windows (the small ones are
+    staged whole by default)."""
+    B, mm, nn = shape
+    q, r, m, n = _inputs(dev, B, mm, nn, 310)
+    tb, offs = K.align_full(q, r, m, n, SC)
+    old = lib.pav_traceback_whole_max(0)
+    try:
+        out = K.traceback(tb, offs, q, r, m, n, False)
+        torch.cuda.synchronize()
+    finally:
+        lib.pav_traceback_whole_max(old)
+    assert torch.equal(out, K.traceback_ref(tb, offs, q, r, m, n, False))
+
+
+def _wave_case(dev, B, mm, nn, ww, seed, shifts=False):
+    """Ragged m != n (either longer), and with ``shifts`` band offsets that
+    move by -1..3 per diagonal, so every (s1, s2) the reference's shift_sel
+    distinguishes occurs."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (B, mm)).astype(np.int8)
+    r = rng.integers(0, 5, (B, nn)).astype(np.int8)
+    m = rng.integers(1, mm + 1, B).astype(np.int32)
+    n = rng.integers(1, nn + 1, B).astype(np.int32)
+    m[0], n[0] = mm, nn
+    t = [torch.from_numpy(a).to(dev) for a in (q, r, m, n)]
+    if shifts:
+        steps = rng.choice([-1, 0, 1, 2, 3], (B, mm + nn))
+        steps[:, 0] = 0
+        doffs = np.maximum(np.cumsum(steps, axis=1), 0).astype(np.int32)
+        d = torch.from_numpy(doffs).to(dev)
+    else:
+        d = affine_dp._wave_geometry(t[2], t[3], mm, nn, mm + nn, ww)
+    return (*t, d)
+
+
+@pytest.mark.parametrize('case', [
+    # B, max_m, max_n, ww, shifts
+    (3, 200, 150, 128, False), (1, 160, 300, 384, False), (5, 300, 333, 384, True),
+    (2, 700, 650, 1152, False), (3, 260, 240, 1152, True), (4, 96, 500, 128, True),
+    (3, 90, 70, 160, False),
+], ids=str)
+def test_dp_wave_edges_match_plain(dev, case):
+    """csrc/dp_wave.cu against align_wave_ref, bit for bit, at ww = 128, 384
+    and 1152 (and 160, a partial last warp), ragged m != n, B = 1, and band
+    offsets that move by -1..3 per diagonal (every neighbour offset of each
+    of the three neighbours)."""
+    B, mm, nn, ww, shifts = case
+    q, r, m, n, doffs = _wave_case(dev, B, mm, nn, ww, 1000 + mm, shifts)
+    tb = K.align_wave(q, r, m, n, doffs, ww, SC)
+    torch.cuda.synchronize()
+    assert torch.equal(tb, K.align_wave_ref(q, r, m, n, doffs, ww, SC))
+
+
+@pytest.mark.parametrize('ww', [384, 1152])
+def test_dp_wave_repeated_launches_agree(dev, ww):
+    """Twenty launches of the default kernel on one input give the plain
+    version's tape every time (the per-diagonal warp-edge hand-off and the
+    staged band offsets)."""
+    q, r, m, n, doffs = _wave_case(dev, 3, 600, 640, ww, 77)
+    want = K.align_wave_ref(q, r, m, n, doffs, ww, SC)
+    for _ in range(20):
+        tb = K.align_wave(q, r, m, n, doffs, ww, SC)
+        torch.cuda.synchronize()
+        assert torch.equal(tb, want)
