@@ -5,14 +5,18 @@
     python3 chip_smoke.py --kernel-times
     python3 chip_smoke.py --dp-full-times
 
-With ``--kernel-times`` it only times the DP kernels and the walker of the
-checkout it sits in (phase 3's inputs and device timing, no parity) at
-every phase-3 shape and tape, and prints one JSON line {"root", "card",
-"kernels": {"dp_full": [[B, max_m, max_n, ms, bound_ms, how], ...],
-"dp_wave": [[B, max_m, max_n, width, ms, bound_ms, how], ...], "traceback":
-[[tape, ms, bound_ms, how, longest path, windowed ms, how], ...]}}; the
-walker's windowed design is timed beside the default at every tape where
-the checkout's library can force it (``pav_traceback_whole_max``).
+With ``--kernel-times`` it only times the DP kernels, the walker and the
+chain scan of the checkout it sits in (phase 3's inputs and device timing,
+no parity) at every phase-3 shape and tape, and prints one JSON line
+{"root", "card", "chain_step_ns", "kernels": {"dp_full": [[B, max_m, max_n,
+ms, bound_ms, how], ...], "dp_wave": [[B, max_m, max_n, width, ms,
+bound_ms, how], ...], "traceback": [[tape, ms, bound_ms, how, longest path,
+windowed ms, how], ...], "chain_scan": [[label, B, n, ms, how, bound_ms,
+dependency_bound_ms, native.chain_dp host ms], ...]}} (the chain scan also
+at 64 x 4096 with limits of 2^31, its int -> float path); the walker's
+windowed design is timed beside the default at every tape where the
+checkout's library can force it (``pav_traceback_whole_max``). Phase 3 of
+a full run takes its device times from such a fresh process.
 ``--dp-full-times`` prints the dp_full part alone as {"root", "card",
 "shapes": [...]}. A copy of this file placed in another checkout (``git
 archive`` of a parent commit) times that checkout's kernels: run the two in
@@ -24,15 +28,18 @@ Phases (each prints its lines; any failure exits nonzero):
      timed;
   3. kernels: each CUDA kernel against its plain PyTorch version, bit for bit,
      on CUDA tensors at the DP classes of the main path and, for the chain
-     scan, at 64 slabs x 4096 anchors; the kernel's median time and the plain
-     version's time (one run, the compared one). The walker runs on the
-     tapes of the first TRACED_FULL classes, of both WAVE_SHAPES and on
-     edge tapes (a whole-row deletion run, a whole-column insertion run,
-     padded items with m = n = 0, B = 1, a band exit that sets err); each
-     line gives the longest path and ns per step. The chain scan also alone
-     at one slab of 2^20 anchors, beside the native host kernel it stands in
-     for. Then the batched density on CUDA against the same call on the CPU
-     (decision level), with its bound at DENSITY_LONG;
+     scan, at 64 slabs x 4096 anchors; the kernel's device time from a
+     fresh ``--kernel-times`` process and the plain version's time (one
+     run, the compared one). The walker runs on the tapes of the first
+     TRACED_FULL classes, of both WAVE_SHAPES and on edge tapes (a
+     whole-row deletion run, a whole-column insertion run, padded items
+     with m = n = 0, B = 1, a band exit that sets err); each line gives the
+     longest path and ns per step. The chain scan also at one slab of 2^20
+     anchors against the native host kernel it stands in for (bit for bit,
+     and its host time), with its bound over the card and its dependency
+     bound (n steps of the probe's dependent chain). Then the batched
+     density on CUDA against the same call on the CPU (decision level),
+     with its bound at DENSITY_LONG;
   4. main path: a 16 Mbp reference and a diploid sample (the generator of
      bench.py, seed 11) from FASTA through ``python -m pav_tpu_torch
      --device cuda`` to a VCF; the full-width and traceback kernels must run.
@@ -45,14 +52,16 @@ Phases (each prints its lines; any failure exits nonzero):
      device time by kernel and by launch grid. Then each sample's DP class
      table (launches, items, cells, path lengths), each class timed alone,
      and the per-run bounds of dp_full, dp_wave and the walker;
-  6. parity: the e2e test genome through the CLI on cuda and on cpu (plain
-     versions); identical VCF records;
+  6. parity: the e2e test genome through the CLI on cuda, and on the cpu
+     (plain versions) through ``Pipeline(ladder='accel')``, the CUDA path's
+     classes: identical VCF records;
   7. mesh: phase 4's h1 through ``Aligner.align_store`` unsharded and with
      its DP sharded over the mesh [cuda:0, cuda:0]; equal tables, balanced
      shards;
   8. chain fallback: the same through ``Aligner.align_store`` with the
      native chain kernel missing, so chaining runs the chain scan kernel on
-     the card; the table equals the native run's;
+     the card, each contig's anchors cut into exact pieces and scanned in
+     one launch; the table equals the native run's;
   9. cohort: two 16 Mbp diploid samples on one reference through one CLI
      process, then through a 2-process cohort (``--coordinator``,
      ``--ship-artifacts``) on the one card, both without a profiler (the
@@ -95,6 +104,11 @@ TRACED_FULL = 6   # the first FULL_SHAPES whose tapes also go through the walker
 WAVE_SHAPES = [(8, 8192, 8192, 513), (4, 8192, 8192, 2049)]
 CHAIN_SHAPE = (64, 4096)        # phase 3 chain scan parity: slabs x anchors
 CHAIN_LONG = 1 << 20            # phase 3 chain scan alone: one slab
+CHAIN_ARGS = (64, 19, 50000.0, 10000.0, 0.19)   # lookback, k, limits, gap scale
+# Limits of 2^31 take the kernel's int -> float (I2F) forms; the engine's
+# take the exact integer forms (csrc/chain_scan.cu).
+CHAIN_ARGS_I2F = (64, 19, 2.0 ** 31, 2.0 ** 31, 0.19)
+CHAIN_PROBE_STEPS = 1 << 20     # steps of the dependency-chain probe
 DENSITY_LONG = (4, 1 << 18)     # phase 3 density: regions x n_pad
 TRACE_KERNEL = 'dp_full'       # phase 9: a dp_full kernel must appear in each trace
 # Kernel names hold these (the walker's kernels are traceback_*).
@@ -393,6 +407,37 @@ def chain_inputs(B, n, seed):
     return q, r, g
 
 
+def chain_piece_anchors(seed, groups=3, clusters=4, per=60, max_dist=50000):
+    """Sorted anchors (group, rpos, qpos) in several groups, each group a
+    few clusters of diagonal anchors separated by rpos gaps > max_dist:
+    the exact pieces the chain fallback cuts at (groups x clusters)."""
+    rng = np.random.default_rng(seed)
+    q, r, g = [], [], []
+    for gi in range(groups):
+        r0 = int(rng.integers(0, 1000))
+        for _ in range(clusters):
+            qp = np.sort(rng.integers(0, 20 * per, per))
+            rp = r0 + qp + rng.integers(-30, 30, per)
+            q.append(qp)
+            r.append(rp)
+            g.append(np.full(per, gi))
+            r0 = int(rp.max()) + max_dist + int(rng.integers(1, 5000))
+    q, r, g = (np.concatenate(x).astype(np.int64) for x in (q, r, g))
+    order = np.lexsort((q, r, g))
+    return q[order], r[order], g[order]
+
+
+def chain_tie_slab(blocks=6, dup=20):
+    """Blocks of ``dup`` identical anchors (which cannot chain to each
+    other: dq = 0) and one follower on their diagonal: every predecessor of
+    the first follower gives the same candidate, 2k."""
+    q, r = [], []
+    for b in range(blocks):
+        q += [1000 * b] * dup + [1000 * b + 50]
+        r += [1000 * b + 7] * dup + [1000 * b + 57]
+    return np.array(q, np.int64), np.array(r, np.int64), np.zeros(len(q), np.int64)
+
+
 def density_regions(count, lo, hi, seed):
     """State-label regions in runs (FWD / FWDREV / REV, 5% noise) with
     Scott sigmas at bandwidth factor 0.25; lengths in [lo, hi)."""
@@ -628,6 +673,33 @@ def trace_bound(out):
     return walk_bound(int(path_lengths(out).sum()), out.shape[0], out.numel())
 
 
+def chain_bound(B, n, lookback=CHAIN_ARGS[0]):
+    """The chain scan over the card: every anchor scans its lookback
+    (OPS_CHAIN_PAIR float32/int32 operations a pair); 3 int32 inputs and 2
+    4-byte outputs per anchor."""
+    return bound(B * n * lookback * OPS_CHAIN_PAIR, FP32_OPS_S, 20 * B * n)
+
+
+def chain_step_ns(dev):
+    """(ns, how) of one step of the chain scan's dependency chain (a
+    shuffle, an add, a subtract and a max, each waiting for the one before),
+    from the library's probe, or (None, None) where it has none. A slab of
+    n anchors cannot take less than n of these: the dependency bound."""
+    import torch
+    from pav_tpu_torch import _build
+    probe = getattr(_build.lib(), 'pav_chain_step_probe', None)
+    if probe is None:
+        return None, None
+    out = torch.zeros(32, dtype=torch.float32, device=dev)
+
+    def run():
+        _build.check(probe(out.data_ptr(), CHAIN_PROBE_STEPS,
+                           torch.cuda.current_stream(dev).cuda_stream),
+                     'pav_chain_step_probe')
+    ms, how = device_ms(run, 3, 'chain_step_probe')
+    return 1e6 * ms / CHAIN_PROBE_STEPS, how
+
+
 def density_bound(count, n_pad):
     """smoothed_states_batch of ``count`` regions at ``n_pad``: the FFT
     operations (OPS note above); int8 labels in, int8 states out."""
@@ -638,7 +710,29 @@ def density_bound(count, n_pad):
 
 # ------------------------------------------------------------------ phases
 
-def phase_kernels(dev):
+def fresh_kernel_times():
+    """Phase 3's kernel times: this script with --kernel-times in a fresh
+    process (in a long process the CUDA-activity traces lose kernel
+    records; a fresh one has not lost any). Its log lines are relayed, its
+    JSON line's kernels returned."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), '--kernel-times'],
+                          capture_output=True, text=True, timeout=900,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f'--kernel-times exited {proc.returncode}:\n{proc.stdout[-3000:]}\n'
+             f'{proc.stderr[-3000:]}')
+    for line in lines[:-1]:
+        log(f'  --kernel-times: {line}')
+    kt = json.loads(lines[-1])['kernels']
+    log(f'kernel times: a fresh --kernel-times process, {time.time() - t0:.1f} s')
+    return kt
+
+
+def phase_kernels(dev, kt):
+    """Each DP kernel and the walker against its plain version at phase 3's
+    shapes and tapes; device ms from ``kt`` (fresh_kernel_times)."""
     import torch
     from pav_tpu_torch.ops import affine_dp, dp_kernels as K
 
@@ -663,7 +757,7 @@ def phase_kernels(dev):
         err = max_abs_err(tb, tb_ref)
         reps = 5 if mm * nn >= 1 << 22 else 20
         call_ms = median_ms(lambda: K.align_full(q, r, m, n, SCORING), reps)
-        ms, how = device_ms(lambda: K.align_full(q, r, m, n, SCORING), reps, 'dp_full')
+        ms, how = kt['dp_full'][i][3], kt['dp_full'][i][5]
         bms, by = full_bound(B, mm, nn)
         log(f'kernel dp_full B={B} {mm}x{nn + 1}: bit-identical, {ms:.4f} ms device ({how}) '
             f'({call_ms:.4f} ms per call, CUDA events around the wrapper; plain '
@@ -682,7 +776,7 @@ def phase_kernels(dev):
         tb_ref, pms = timed_ms(lambda: K.align_wave_ref(q, r, m, n, doffs, ww, SCORING))
         if not torch.equal(tb, tb_ref):
             fail(f'dp_wave differs from align_wave_ref at B={B} {mm}x{nn} w{width}')
-        ms, how = device_ms(lambda: K.align_wave(q, r, m, n, doffs, ww, SCORING), 3, 'dp_wave')
+        ms, how = kt['dp_wave'][i][4], kt['dp_wave'][i][6]
         bms, by = wave_bound(B, mm, nn, ww)
         log(f'kernel dp_wave B={B} {mm}x{nn} width {width} ({ww} lanes): '
             f'bit-identical, {ms:.4f} ms device ({how}; plain {pms:.1f} ms, one run); bound '
@@ -700,8 +794,7 @@ def phase_kernels(dev):
         if label.startswith('band exit') and errs != ref.shape[0]:
             fail(f'only {errs} of {ref.shape[0]} walks left the band on the {label} tape')
         stats['traceback']['err'] = max(stats['traceback']['err'], max_abs_err(out, ref))
-        ms, how = device_ms(lambda: K.traceback(tb, offs, q, r, m, n, wave), 5,
-                            NEEDLES['traceback'])
+        ms, how = kt['traceback'][i][1], kt['traceback'][i][3]
         bms, by = trace_bound(out)
         longest = int(path_lengths(out).max())
         log(f'kernel traceback on {label}: bit-identical, {ms:.4f} ms device '
@@ -713,48 +806,49 @@ def phase_kernels(dev):
     return stats
 
 
-def phase_chain_scan(dev, stats):
+def phase_chain_scan(dev, stats, kt):
     """The chain scan kernel against its plain version (bit for bit) at
-    CHAIN_SHAPE, and alone at one CHAIN_LONG slab beside native.chain_dp."""
+    CHAIN_SHAPE, and at one CHAIN_LONG slab against native.chain_dp (bit
+    for bit); device ms, the host kernel's ms and the bounds from ``kt``."""
     import torch
     from pav_tpu_torch import native
     from pav_tpu_torch.ops import chain_scan as C
-    args = (64, 19, 50000.0, 10000.0, 0.19)
     B, n = CHAIN_SHAPE
     q, r, g = (torch.from_numpy(a).to(dev) for a in chain_inputs(B, n, 700))
-    f, p = C._chain_scan_batch(q, r, g, *args)
-    C._chain_scan_ref(q[:1, :64], r[:1, :64], g[:1, :64], *args)   # warm-up
-    (f_ref, p_ref), pms = timed_ms(lambda: C._chain_scan_ref(q, r, g, *args))
+    f, p = C._chain_scan_batch(q, r, g, *CHAIN_ARGS)
+    C._chain_scan_ref(q[:1, :64], r[:1, :64], g[:1, :64], *CHAIN_ARGS)   # warm-up
+    (f_ref, p_ref), pms = timed_ms(lambda: C._chain_scan_ref(q, r, g, *CHAIN_ARGS))
     if not (torch.equal(f, f_ref) and torch.equal(p, p_ref)):
         fail(f'chain_scan differs from _chain_scan_ref at B={B} n={n}')
     if not bool((p >= 0).any()):
         fail('chain_scan chained no anchor')
-    ms, how = device_ms(lambda: C._chain_scan_batch(q, r, g, *args), 10, 'chain_scan')
     err = float((f - f_ref).abs().max().item())
-    # Every anchor scans its 64-anchor lookback; 3 int32 inputs and 2
-    # 4-byte outputs per anchor.
-    bms, by = bound(B * n * args[0] * OPS_CHAIN_PAIR, FP32_OPS_S, 20 * B * n)
-    stats['chain_scan'].update(err=err, ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms,
-                               bound_by=by)
-    log(f'kernel chain_scan B={B} x {n} anchors: bit-identical, {ms:.4f} ms device '
-        f'({how}; plain {pms:.1f} ms, one run); bound {bms:.4f} ms ({by}), '
-        f'{100 * bms / ms:.1f}% of bound')
-
     ql, rl, gl = chain_inputs(1, CHAIN_LONG, 701)
-    ql_d, rl_d, gl_d = (torch.from_numpy(a).to(dev) for a in (ql, rl, gl))
-    ms_long = median_ms(lambda: C._chain_scan_batch(ql_d, rl_d, gl_d, *args), 3)
-    f_long, p_long = C._chain_scan_batch(ql_d, rl_d, gl_d, *args)
-    host_s = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        f_nat, p_nat = native.chain_dp(ql[0], rl[0], gl[0], 19, 64, 50000.0,
-                                       10000.0, 0.19)
-        host_s.append(time.perf_counter() - t0)
-    diff_f = int((f_long[0].cpu().numpy() != f_nat).sum())
-    diff_p = int((p_long[0].cpu().numpy().astype(np.int64) != p_nat).sum())
-    log(f'kernel chain_scan B=1 x {CHAIN_LONG} anchors: {ms_long:.2f} ms; '
-        f'native.chain_dp on the host {1e3 * float(np.median(host_s)):.2f} ms '
-        f'(median of 3); scores differing {diff_f}, parents differing {diff_p}')
+    f_long, p_long = C._chain_scan_batch(*(torch.from_numpy(a).to(dev) for a in (ql, rl, gl)),
+                                         *CHAIN_ARGS)
+    f_nat, p_nat = native.chain_dp(ql[0], rl[0], gl[0], CHAIN_ARGS[1], CHAIN_ARGS[0],
+                                   *CHAIN_ARGS[2:])
+    if not (np.array_equal(f_long[0].cpu().numpy(), f_nat)
+            and np.array_equal(p_long[0].cpu().numpy().astype(np.int64), p_nat)):
+        fail(f'chain_scan differs from native.chain_dp on one slab of {CHAIN_LONG} anchors')
+    f2, p2 = C._chain_scan_batch(q, r, g, *CHAIN_ARGS_I2F)
+    f2_ref, p2_ref = C._chain_scan_ref(q, r, g, *CHAIN_ARGS_I2F)
+    if not (torch.equal(f2, f2_ref) and torch.equal(p2, p2_ref)):
+        fail(f'chain_scan differs from _chain_scan_ref at B={B} n={n}, limits 2^31')
+    checked = ('_chain_scan_ref', 'native.chain_dp', '_chain_scan_ref')
+    for i, (label, b, nn, ms, how, bms, dep, host_ms) in enumerate(kt['chain_scan']):
+        dep_note = ('no probe' if dep is None else
+                    f'{dep:.4f} ms, {100 * dep / ms:.1f}% of it')
+        log(f'kernel chain_scan at {label} (slabs x anchors): bit-identical ({checked[i]}), '
+            f'{ms:.4f} ms '
+            f'device ({how}); native.chain_dp on the host {host_ms:.2f} ms (median of 3); '
+            f'bound over the card {bms:.4f} ms ({100 * bms / ms:.1f}%); dependency '
+            f'bound {dep_note}')
+        if i == 0:
+            stats['chain_scan'].update(err=err, ms=ms, ms_by=how, plain_ms=pms,
+                                       bound_ms=bms, bound_by=chain_bound(b, nn)[1],
+                                       dependency_bound_ms=dep)
+    log(f'kernel chain_scan {B} x {n}: plain version {pms:.1f} ms on the card, one run')
 
 
 def phase_density(dev):
@@ -891,8 +985,45 @@ def kernel_times(card, dev, dp_full_only=False):
             row += list(device_ms(walk, 5, NEEDLES['traceback']))
             whole_max(old)
         rows['traceback'].append(row)
-    print(json.dumps({'root': ROOT, 'card': card, 'kernels': rows}), flush=True)
+    rows['chain_scan'], step_ns = chain_times(dev)
+    print(json.dumps({'root': ROOT, 'card': card, 'chain_step_ns': step_ns,
+                      'kernels': rows}), flush=True)
     return 0
+
+
+def chain_times(dev):
+    """The chain scan of this checkout (``_chain_scan_batch`` only) at
+    CHAIN_SHAPE, at one CHAIN_LONG slab, and at CHAIN_SHAPE again with the
+    limits of CHAIN_ARGS_I2F, on phase 3's inputs: ([[label, B, n, ms, how,
+    bound_ms, dependency_bound_ms, host_ms], ...], ns of one dependent
+    step). host_ms: native.chain_dp on the same slabs and limits, one call
+    a slab, median of 3."""
+    import torch
+    from pav_tpu_torch import native
+    from pav_tpu_torch.ops import chain_scan as C
+    step_ns, _ = chain_step_ns(dev)
+    rows = []
+    for (B, n), seed, args, note in ((CHAIN_SHAPE, 700, CHAIN_ARGS, ''),
+                                     ((1, CHAIN_LONG), 701, CHAIN_ARGS, ''),
+                                     (CHAIN_SHAPE, 700, CHAIN_ARGS_I2F, ', limits 2^31')):
+        arrays = chain_inputs(B, n, seed)
+        q, r, g = (torch.from_numpy(a).to(dev) for a in arrays)
+
+        def scan():
+            return C._chain_scan_batch(q, r, g, *args)
+        reps = 10 if n <= CHAIN_SHAPE[1] else 3
+        ms, how = device_ms(scan, reps, NEEDLES['chain_scan'])
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for b in range(B):
+                native.chain_dp(arrays[0][b], arrays[1][b], arrays[2][b], args[1], args[0],
+                                *args[2:])
+            host.append(1e3 * (time.perf_counter() - t0))
+        dep = None if step_ns is None else 1e-6 * step_ns * n
+        rows.append([f'{B} x {n}{note}', B, n, ms, how, chain_bound(B, n)[0], dep,
+                     float(np.median(host))])
+    return rows, step_ns
 
 
 def main():
@@ -939,9 +1070,10 @@ def main():
         if 'registers' in line or 'spill' in line:
             log(f'  ptxas: {line.strip()}')
 
-    # 3. kernels against their plain versions
-    stats = phase_kernels(dev)
-    phase_chain_scan(dev, stats)
+    # 3. kernels against their plain versions; times from a fresh process
+    kt = fresh_kernel_times()
+    stats = phase_kernels(dev, kt)
+    phase_chain_scan(dev, stats, kt)
     phase_density(dev)
     torch.cuda.synchronize()
 
@@ -957,7 +1089,9 @@ def main():
                 'ms': stats[name]['ms'], 'ms_by': stats[name]['ms_by'],
                 'plain_ms': stats[name]['plain_ms'],
                 'bound_ms': stats[name]['bound_ms'], 'bound_by': stats[name]['bound_by'],
-                'library_ms': stats[name]['library_ms']}
+                'library_ms': stats[name]['library_ms'],
+                **({'dependency_bound_ms': stats[name]['dependency_bound_ms']}
+                   if 'dependency_bound_ms' in stats[name] else {})}
                for name, (src, rep, key) in KERNELS.items()]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
@@ -1133,17 +1267,26 @@ def drive_main_path(work, card, dev):
     dp_classes('bench16', classes, dev)
     dp_classes('rep2', rep_classes, dev)
 
-    # 6. cuda vs cpu on the e2e genome
+    # 6. cuda vs cpu on the e2e genome, the CPU on the CUDA path's classes
+    # (ladder='accel', the plain kernel versions; the CLI's --device cpu
+    # takes the CPU ladder, which tier-1 holds against pav_tpu).
+    from pav_tpu_torch.io.fasta import SeqStore
+    from pav_tpu_torch.pipeline import Pipeline
     ref, h1, h2 = e2e_genome()
     haps = {'h1': ('tig1_1', h1), 'h2': ('tig2_1', h2)}
-    extra = ('--set', 'aligner_min_chain_score=500')
-    run_gpu, _ = run_sample(work, 'samp1', ref, haps, DEVICE, extra)
-    run_cpu, _ = run_sample(work, 'samp1', ref, haps, 'cpu', extra)
+    run_gpu, _ = run_sample(work, 'samp1', ref, haps, DEVICE,
+                            ('--set', 'aligner_min_chain_score=500'))
+    cpu = Pipeline(SeqStore({'chr1': ref}), {'aligner_min_chain_score': 500},
+                   run_dir=os.path.join(work, 'samp1', 'run_cpu_accel'), device='cpu',
+                   ladder='accel').run_sample('samp1', {h: SeqStore(dict([tig]))
+                                                        for h, tig in haps.items()})
     gpu_recs = vcf_records(os.path.join(run_gpu, 'samp1.vcf.gz'))
-    cpu_recs = vcf_records(os.path.join(run_cpu, 'samp1.vcf.gz'))
+    cpu_recs = vcf_records(cpu['vcf'])
     if not gpu_recs or gpu_recs != cpu_recs:
-        fail(f'cuda and cpu VCFs differ ({len(gpu_recs)} vs {len(cpu_recs)} records)')
-    log(f'parity: cuda and cpu VCFs of the e2e genome identical ({len(gpu_recs)} records)')
+        fail(f'cuda and cpu (ladder=accel) VCFs differ ({len(gpu_recs)} vs '
+             f'{len(cpu_recs)} records)')
+    log(f'parity: cuda and cpu (ladder=accel) VCFs of the e2e genome identical '
+        f'({len(gpu_recs)} records)')
     return main_launches, genome
 
 
@@ -1197,12 +1340,15 @@ def drive_scale_out(work, card, dev, genome):
     finally:
         native.chain_dp = orig
     launches = {'chain_scan': chain_scan.LAUNCHES['chain_scan']}
+    pieces = dict(chain_scan.PIECES)
     if launches['chain_scan'] <= 0:
         fail('chain fallback: the chain scan kernel was not launched')
     if not fallback.equals(plain):
         fail('chain fallback: the alignment table differs from the native run')
-    log(f'chain fallback: tables equal; {launches["chain_scan"]} chain_scan launches; '
-        f'align_store wall {wall_fb:.2f} s (native chaining {wall_plain:.2f} s) on {card}')
+    log(f'chain fallback: tables equal; {launches["chain_scan"]} chain_scan launches for '
+        f'{pieces["calls"]} chain_scores calls, {pieces["pieces"]} pieces in '
+        f'{pieces["rows"]} rows; align_store wall {wall_fb:.2f} s (native chaining '
+        f'{wall_plain:.2f} s) on {card}')
     torch.cuda.synchronize()
 
     # 9. cohort

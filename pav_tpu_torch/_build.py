@@ -51,6 +51,8 @@ SIGNATURES = {
     # qpos, rpos, group, f, parent, B, n, lookback, k,
     # max_dist, max_gap_diff, gap_scale, stream
     'pav_chain_scan': ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P], _I),
+    # out (float[32]), iters, stream: the chain scan's dependency-chain probe
+    'pav_chain_step_probe': ([_P, _I, _P], _I),
     'pav_cuda_error_string': ([_I], ctypes.c_char_p),
 }
 

@@ -18,8 +18,13 @@ schema: API_ALIGN.md:31-64.
 
 Port of pav_tpu.align.aligner.core: the same planning and stitching, with the
 DP on the torch port (pav_tpu_torch.ops.affine_dp) on an explicit device. The
-accelerator class ladder, transposition and bucket coalescing run on every
-device, so a CPU run exercises the same classes as a CUDA run.
+class ladder is a parameter (``Aligner(ladder=...)``): ``'accel'`` is the
+reference's accelerator branch (coarse classes, transposition, bucket
+coalescing, the resident gather, wavefront bands), ``'cpu'`` its CPU branch
+(fine pow2 classes, row bands, no transposition). By default a CPU device
+takes the CPU ladder and a CUDA device the accelerator ladder, as the
+reference picks by backend; ``ladder='accel'`` on a CPU device runs the
+CUDA path's classes on the plain kernel versions.
 """
 
 import collections
@@ -95,6 +100,48 @@ def _trim_ext_runs(lens, ops, scoring, reversed_frame, lq, lr):
     if reversed_frame:
         return rem + kept[::-1]
     return kept + rem
+
+
+def _bucket_pow2(x, lo=32, hi=1 << 15):
+    v = lo
+    while v < x and v < hi:
+        v <<= 1
+    return v
+
+
+def _cpu_bucket(m, n):
+    """(m_b, n_b, width_b) on the reference's CPU ladder: fine pow2 classes,
+    rows (query) and columns (ref) padded independently, no transposition.
+    Classes up to 256 get a band of 2|m-n| + 17 columns, larger ones of
+    2|m-n| + 65; a band as wide as the row is full width."""
+    m_b = _bucket_pow2(m, lo=16)
+    n_b = _bucket_pow2(n, lo=16)
+    if max(m_b, n_b) <= 256:
+        width = 2 * abs(m - n) + 17
+        width_b = min(_bucket_pow2(width, lo=16) + 1, n_b + 1)
+    else:
+        width = min(2 * abs(m - n) + _MIN_WIDTH, n + 1)
+        width_b = min(_bucket_pow2(width, lo=256) + 1, n_b + 1)
+    return m_b, n_b, width_b
+
+
+def _cpu_shape_batch(m_b, width_b):
+    """Batch cap of a class on the CPU ladder (the reference's CPU cap)."""
+    return max(8, min(4096, (128 << 20) // max(m_b * width_b, 1)))
+
+
+def resolve_ladder(ladder, device):
+    """The class ladder for ``device``: ``ladder`` itself, or by default
+    ``'cpu'`` for a CPU device and ``'accel'`` otherwise (the reference picks
+    by ``jax.default_backend() != 'cpu'``)."""
+    if ladder is None:
+        return 'cpu' if torch.device(device).type == 'cpu' else 'accel'
+    if ladder not in ('cpu', 'accel'):
+        raise ValueError(f"ladder {ladder!r} is neither 'cpu' nor 'accel'")
+    if ladder == 'cpu' and torch.device(device).type != 'cpu':
+        raise ValueError(f'the CPU ladder runs row bands, which have no kernel on '
+                         f'{device}: use the accelerator ladder there')
+    return ladder
 
 
 # Size ladder of the DP classes (the reference's accelerator ladder): pow2
@@ -242,7 +289,7 @@ class Aligner:
     # configs run unmodified (rules/align.snakefile:176-221).
     ALIASES = {'minimap2': 'native', 'lra': 'native-sensitive'}
 
-    def __init__(self, ref_store, config=None, device=None):
+    def __init__(self, ref_store, config=None, device=None, ladder=None):
         cfg = dict(config or {})
         name = str(cfg.get('aligner', 'native'))
         preset = self.PRESETS.get(self.ALIASES.get(name, name))
@@ -274,6 +321,7 @@ class Aligner:
         self.dp = affine_dp.BandedAligner(scoring, device=device)
         self.scoring = self.dp.scoring
         self.device = self.dp.device
+        self.ladder = resolve_ladder(ladder, self.device)
         self.index = MinimizerIndex(ref_store, k=self.k, w=self.w)
 
     # ------------------------------------------------------------------ align
@@ -342,25 +390,28 @@ class Aligner:
 
         names = qry_store.names()
 
-        # Upload every sequence the plans can slice (ref chromosomes +
-        # forward contigs) once; launches then carry only window descriptors.
+        # Accelerator ladder: upload every sequence the plans can slice (ref
+        # chromosomes + forward contigs) once; launches then carry only
+        # window descriptors. The CPU ladder launches the padded sequences.
         prepared = {}
+        resident = base_map = None
         rc_map = {}
-        _t0 = _time.time()
-        arrays = [self.ref_store.get(c) for c in self.ref_store.names()]
-        for name in names:
-            codes = qry_store.get(name)
-            prepared[name] = {False: codes, True: seqcodec.revcomp(codes)}
-            arrays.append(codes)
-        ALIGN_STATS['res_prep_s'] += _time.time() - _t0
-        resident, base_map = _build_resident_from(arrays, self.dp.devices)
-        # Reverse-complement arrays are never uploaded: a window of the rc
-        # contig maps onto the forward buffer with the gather's
-        # reverse+complement flags (halves the resident buffer).
-        for name in names:
-            fwd = prepared[name][False]
-            rc_map[id(prepared[name][True])] = (base_map[id(fwd)], len(fwd))
-        ALIGN_STATS['resident_s'] += _time.time() - _t0
+        if self.ladder == 'accel':
+            _t0 = _time.time()
+            arrays = [self.ref_store.get(c) for c in self.ref_store.names()]
+            for name in names:
+                codes = qry_store.get(name)
+                prepared[name] = {False: codes, True: seqcodec.revcomp(codes)}
+                arrays.append(codes)
+            ALIGN_STATS['res_prep_s'] += _time.time() - _t0
+            resident, base_map = _build_resident_from(arrays, self.dp.devices)
+            # Reverse-complement arrays are never uploaded: a window of the
+            # rc contig maps onto the forward buffer with the gather's
+            # reverse+complement flags (halves the resident buffer).
+            for name in names:
+                fwd = prepared[name][False]
+                rc_map[id(prepared[name][True])] = (base_map[id(fwd)], len(fwd))
+            ALIGN_STATS['resident_s'] += _time.time() - _t0
 
         _t0 = _time.time()
         if len(names) > 1:
@@ -813,12 +864,18 @@ class Aligner:
 
     def _run_segments(self, segments, resident=None, base_map=None,
                       rc_map=None):
-        """Bucket DP jobs into padded classes and run batched kernel calls."""
+        """Bucket DP jobs into padded classes and run batched kernel calls
+        on the aligner's ladder (see the module docstring)."""
+        accel = self.ladder == 'accel'
+        band = 'wave' if accel else 'row'
         buckets = collections.defaultdict(list)
         for si, seg in enumerate(segments):
             if seg.kind == 'break':
                 continue
             m, n = len(seg.q), len(seg.r)
+            if not accel:
+                buckets[_cpu_bucket(m, n)].append((si, False))
+                continue
             # Segments run transposed when the query side is longer: global
             # DP is symmetric under (q<->r, I<->D), the DP is sequential
             # over rows, and rows = the shorter side minimizes its depth.
@@ -828,11 +885,18 @@ class Aligner:
             a, b = (n, m) if t else (m, n)
             buckets[_accel_bucket(a, b)].append((si, t))
 
-        # Fold classes whose item count is far below their batch cap into a
-        # wider neighbor (full width stays exact).
-        buckets = _coalesce_buckets(buckets)
+        if accel:
+            # Fold classes whose item count is far below their batch cap
+            # into a wider neighbor (full width stays exact).
+            buckets = _coalesce_buckets(buckets)
 
         def batch_pad(batch, n_items):
+            if not accel:
+                # CPU ladder: the batch padded up to a power of 4 (>= 8).
+                b_pad = 8
+                while b_pad < n_items:
+                    b_pad *= 4
+                return min(batch, b_pad)
             # pow2-down to >= 50% batch fill (floor 8): batch padding must
             # not reintroduce the padded cells the fine classes removed.
             b = batch
@@ -840,10 +904,16 @@ class Aligner:
                 b //= 2
             return max(b, 8)
 
-        # Device-resident sources: every host array the segments slice is
-        # uploaded ONCE; launches carry only (offset, len, flags)
-        # descriptors and the padded windows are gathered on the device.
-        if resident is None:
+        def shape_batch(m_b, width_b, n_b=None):
+            if not accel:
+                return _cpu_shape_batch(m_b, width_b)
+            return _shape_batch(m_b, width_b, n_b, self.device.type)
+
+        # Device-resident sources (accelerator ladder): every host array the
+        # segments slice is uploaded ONCE; launches carry only (offset, len,
+        # flags) descriptors and the padded windows are gathered on the
+        # device.
+        if accel and resident is None:
             import time as _time
             _t0 = _time.time()
             resident, base_map = _build_resident(segments, self.dp.devices)
@@ -887,18 +957,19 @@ class Aligner:
                 if items is not None:
                     return self.dp.align_batch_refs_async(
                         items, width=width_b, pad_to=(m_b, n_b),
-                        pad_batch=pad_batch, resident=resident)
+                        pad_batch=pad_batch, resident=resident, band=band)
             pairs = [(segments[i].r, segments[i].q) if t
                      else (segments[i].q, segments[i].r) for i, t in chunk]
             return self.dp.align_batch_async(
-                pairs, width=width_b, pad_to=(m_b, n_b), pad_batch=pad_batch)
+                pairs, width=width_b, pad_to=(m_b, n_b), pad_batch=pad_batch,
+                band=band)
 
         # Two-phase: launch every bucket first, then collect — transfers
         # overlap later launches.
         launches = []
         for (m_b, n_b, width_b), entries in sorted(buckets.items()):
             # Batch cap per shape, sized so in-flight DP state stays bounded.
-            batch = _shape_batch(m_b, width_b, n_b, self.device.type)
+            batch = shape_batch(m_b, width_b, n_b)
             for lo in range(0, len(entries), batch):
                 chunk = entries[lo:lo + batch]
                 handle = launch_chunk(chunk, width_b, m_b, n_b,
@@ -915,29 +986,34 @@ class Aligner:
                     segments[i].result = _swap_ins_del(res) if t else res
         if retry:
             # Band-escaping paths (e.g. opposing gaps) re-run at full width,
-            # grouped into the same canonical classes (width = n_b + 1).
-            # Classes too large for the full-width kernel (see
-            # _FULL_CELLS_MAX) become record breaks instead: the path
-            # wandered >2k off-diagonal through a multi-kb block, which
-            # reference aligners also split.
+            # grouped into the same canonical classes (width = n_b + 1). On
+            # the accelerator ladder, classes too large for the full-width
+            # kernel (see _FULL_CELLS_MAX) become record breaks instead: the
+            # path wandered >2k off-diagonal through a multi-kb block, which
+            # reference aligners also split. The CPU ladder (as the
+            # reference's CPU branch) retries every escape at full width.
             regroup = collections.defaultdict(list)
             for i in retry:
                 seg = segments[i]
                 m, n = len(seg.q), len(seg.r)
-                t = m > n
+                t = accel and m > n
                 if t:
                     m, n = n, m
-                m_b = _bucket_ladder(m)
-                n_b = _bucket_ladder(n)
-                if m_b * (n_b + 1) > _FULL_CELLS_MAX:
-                    segments[i].kind = 'break'
-                    continue
+                if accel:
+                    m_b = _bucket_ladder(m)
+                    n_b = _bucket_ladder(n)
+                    if m_b * (n_b + 1) > _FULL_CELLS_MAX:
+                        segments[i].kind = 'break'
+                        continue
+                else:
+                    m_b = _bucket_pow2(m, lo=16)
+                    n_b = _bucket_pow2(n, lo=16)
                 regroup[(m_b, n_b)].append((i, t))
             # Two-phase like the main pass: launch every retry class, then
             # resolve together.
             retry_launches = []
             for (m_b, n_b), entries in sorted(regroup.items()):
-                batch = _shape_batch(m_b, n_b + 1, None, self.device.type)
+                batch = shape_batch(m_b, n_b + 1)
                 for lo in range(0, len(entries), batch):
                     chunk = entries[lo:lo + batch]
                     handle = launch_chunk(chunk, n_b + 1, m_b, n_b,

@@ -5,10 +5,11 @@ All inter-anchor gap segments are bucketed by size into padded classes and
 aligned in one launch per batch: a DP kernel writes one traceback byte per
 cell (layout below), the traceback kernel walks each item's tape into a
 compact 2-bit step tape, and one buffer per launch returns to the host.
-Full-width classes run ``dp_kernels.align_full`` (rows), banded classes
+Full-width classes run ``dp_kernels.align_full`` (rows). Banded classes run
 ``dp_kernels.align_wave`` (anti-diagonals), as the reference does on an
-accelerator; the kernels are CUDA for CUDA tensors and their plain
-versions for CPU tensors (``dp_kernels``).
+accelerator, or, on the CPU ladder, ``dp_kernels.align_band_ref`` (row
+windows), as the reference does on its CPU backend. The kernels are CUDA for
+CUDA tensors and their plain versions for CPU tensors (``dp_kernels``).
 
 Scoring follows the reference's minimap2 parameterization (match 1, mismatch
 -5, gaps min(5+4g, 56+g)); scores are int32 throughout.
@@ -130,13 +131,16 @@ def _wave_geometry(m, n, max_m, max_n, D, Ww):
     return doffs.to(torch.int32).contiguous()
 
 
-def align_and_trace(q, r, m, n, max_m, width, scoring):
+def align_and_trace(q, r, m, n, max_m, width, scoring, band='wave'):
     """DP + traceback for one padded batch: fused uint8 [B, L/4 + 5] (2-bit
     step codes, reversed path; 4-byte LE path length; band-exit err byte).
 
     :param q: int8 [B, max_m]; r: int8 [B, max_n]; m, n: int32 [B].
     :param width: band width; ``max_n + 1`` runs full width, anything
-        narrower the wavefront band of ``_wave_width(width)`` lanes.
+        narrower a band of the kind ``band`` names.
+    :param band: ``'wave'``, the wavefront band of ``_wave_width(width)``
+        lanes (the accelerator ladder), or ``'row'``, the row band of
+        ``width`` columns (the CPU ladder; CPU tensors only).
     """
     max_n = r.shape[1]
     if q.shape[1] != max_m:
@@ -145,7 +149,12 @@ def align_and_trace(q, r, m, n, max_m, width, scoring):
     if width == max_n + 1:
         tb, offs = dp_kernels.align_full(q, r, m, n, sc)
         wave = False
+    elif 0 < width < max_n + 1 and band == 'row':
+        tb, offs = dp_kernels.align_band_ref(q, r, m, n, width, sc)
+        wave = False
     elif 0 < width < max_n + 1:
+        if band != 'wave':
+            raise ValueError(f"band {band!r} is neither 'wave' nor 'row'")
         ww = _wave_width(width)
         offs = _wave_geometry(m, n, max_m, max_n, max_m + max_n, ww)
         tb = dp_kernels.align_wave(q, r, m, n, offs, ww, sc)
@@ -222,18 +231,20 @@ class BandedAligner:
             STATS['shard_cells'] = tuple(c + rows * max_m * width for c in cur)
         return placed
 
-    def align_batch(self, pairs, width, pad_to=None):
+    def align_batch(self, pairs, width, pad_to=None, band='wave'):
         """Align a list of (q_codes, r_codes) with one bucket shape.
 
         :return: list of (lens, ops) CIGAR arrays (I = query-consuming gap,
             D = ref-consuming gap, =/X matches).
         """
-        return self.align_batch_async(pairs, width, pad_to=pad_to)()
+        return self.align_batch_async(pairs, width, pad_to=pad_to, band=band)()
 
-    def align_batch_async(self, pairs, width, pad_to=None, pad_batch=None):
+    def align_batch_async(self, pairs, width, pad_to=None, pad_batch=None,
+                          band='wave'):
         """Launch the batch and return a no-arg callable that waits for the
         step tapes and yields the CIGAR list (launch every bucket first,
-        then resolve)."""
+        then resolve). ``band``: the kind of a banded class
+        (``align_and_trace``)."""
         B = len(pairs)
         m = np.array([len(q) for q, _ in pairs], dtype=np.int32)
         n = np.array([len(r) for _, r in pairs], dtype=np.int32)
@@ -272,7 +283,7 @@ class BandedAligner:
         for dev, (q, r, mt, nt) in self._place(host, B_pad, max_m, width):
             with on_device(dev):
                 fused.append(align_and_trace(q, r, mt, nt, max_m, width,
-                                             self.scoring))
+                                             self.scoring, band))
         with _STATS_LOCK:
             STATS['launches'] += 1
             STATS['items'] += B
@@ -283,7 +294,7 @@ class BandedAligner:
                             cells_real=cells_real)
 
     def align_batch_refs_async(self, items, width, pad_to, pad_batch=None,
-                               resident=None):
+                               resident=None, band='wave'):
         """Resident launch: like align_batch_async, but each item is a
         (qoff, qlen, qflags, roff, rlen, rflags) window into ``resident``,
         gathered on the device. flags bit0 reads the window reversed, bit1
@@ -311,7 +322,7 @@ class BandedAligner:
             with on_device(dev):
                 q, r, m, n = _gather_resident(resident[dev], desc, max_m, max_n)
                 fused.append(align_and_trace(q, r, m, n, max_m, width,
-                                             self.scoring))
+                                             self.scoring, band))
         with _STATS_LOCK:
             STATS['launches'] += 1
             STATS['items'] += B

@@ -5,7 +5,9 @@ rolling lookback of anchors, never crossing groups (chrom x strand). The
 recurrence is sequential and irregular: ``chain_scores`` runs the native
 host kernel (native/chain.cpp via pav_tpu.native), as the reference's main
 path does, and falls back to the scan on the caller's device when the
-native library is missing. ``chain_scores_batch`` runs a batch of
+native library is missing: the anchors cut into exact independent pieces
+(at a group change or an rpos gap > max_dist), packed in order into rows,
+all rows one scan launch. ``chain_scores_batch`` runs a batch of
 independent slabs as one scan, optionally split over a device mesh.
 
 The scan (``_chain_scan_batch``) is ``csrc/chain_scan.cu`` for CUDA tensors
@@ -42,12 +44,19 @@ NEG = float(np.float32(-1e18))
 PAD_GROUP = -9
 
 LAUNCHES = {'chain_scan': 0}
+# chain_scores' device fallback: calls, exact pieces, rows launched.
+PIECES = {'calls': 0, 'pieces': 0, 'rows': 0}
 _COUNT_LOCK = threading.Lock()
+# Rows a fallback launch aims at (one warp each on the card): a row holds
+# consecutive pieces up to max(longest piece, anchors / _ROWS_TARGET).
+_ROWS_TARGET = 512
 
 
 def launches_reset():
     with _COUNT_LOCK:
         LAUNCHES['chain_scan'] = 0
+        for key in PIECES:
+            PIECES[key] = 0
 
 
 def _chain_scan_ref(qpos, rpos, group, lookback, k, max_dist, max_gap_diff,
@@ -229,5 +238,39 @@ def chain_scores(qpos, rpos, group, k, lookback=64, max_dist=50000,
     if device is None:
         raise RuntimeError('native chain kernel unavailable (g++ build of '
                            'native/*.cpp failed) and no device for the scan')
-    return chain_scores_batch([(qpos, rpos, group)], k, lookback, max_dist,
-                              max_gap_diff, gap_scale, device=device)[0]
+    starts, pieces = _piece_rows(rpos, group, max_dist)
+    ends = starts[1:] + [len(qpos)]
+    outs = chain_scores_batch([(qpos[a:b], rpos[a:b], group[a:b])
+                               for a, b in zip(starts, ends)],
+                              k, lookback, max_dist, max_gap_diff, gap_scale,
+                              device=device)
+    with _COUNT_LOCK:
+        PIECES['calls'] += 1
+        PIECES['pieces'] += pieces
+        PIECES['rows'] += len(starts)
+    scores = np.concatenate([f for f, _ in outs])
+    parents = np.concatenate([np.where(p >= 0, p + a, -1)
+                              for a, (_, p) in zip(starts, outs)])
+    return scores, parents
+
+
+def _piece_rows(rpos, group, max_dist):
+    """Cut sorted anchors into exact independent pieces and pack them, in
+    order, into rows: (row starts, piece count).
+
+    No chain crosses a group change or an rpos gap > max_dist: rpos ascends
+    within a group (anchors sort by group, rpos, qpos), so every pair across
+    such a gap fails dr <= max_dist, and a scan that starts at a cut sees
+    only invalid predecessors either way. A row takes consecutive pieces up
+    to max(longest piece, anchors / _ROWS_TARGET), so the padded batch stays
+    within a few times the anchors."""
+    n = len(rpos)
+    cut = np.nonzero((np.asarray(group[1:]) != np.asarray(group[:-1]))
+                     | (np.diff(np.asarray(rpos, dtype=np.int64)) > max_dist))[0] + 1
+    bounds = np.concatenate([[0], cut, [n]]).astype(np.int64)
+    target = max(int(np.diff(bounds).max()), -(-n // _ROWS_TARGET))
+    starts = [0]
+    for b0, b1 in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        if b1 - starts[-1] > target and b0 > starts[-1]:
+            starts.append(b0)
+    return starts, len(bounds) - 1

@@ -10,6 +10,10 @@ counts its kernel launches in ``LAUNCHES``.
 * ``traceback``   -> ``csrc/traceback.cu`` (replaces the XLA walker in
   ``affine_dp._align_and_trace_impl``)
 
+``align_band_ref`` is the row-banded DP of ``affine_dp._align_batch``, which
+the reference runs only on its CPU ladder: it has no kernel and takes CPU
+tensors only, and ``traceback`` walks its tapes on the CPU only.
+
 The plain versions follow the reference's recurrences as batched tensor ops
 with a Python loop over rows, diagonals or steps, and produce the same bytes
 as the reference (tape layout ``pav_tpu/ops/affine_dp.py:14-22``).
@@ -189,6 +193,100 @@ def align_full_ref(q, r, m, n, sc):
     return tb, torch.zeros((B, max_m), dtype=i32, device=dev)
 
 
+# ------------------------------------------------------------- row band
+
+def align_band_ref(q, r, m, n, width, sc):
+    """Row-banded DP tape of ``affine_dp._align_batch``: (tb uint8 [B, max_m,
+    width], offs int32 [B, max_m]). Row i's window starts at column
+    ``offs[:, i-1] = clip(i*n//m - width//2, 0, max(n+1-width, 0))``; the
+    substitution rows are int8 with a -128 sentinel at column 0; row 1 reads
+    the analytic row 0; F is an exclusive prefix max over the window
+    (opening wins ties). CPU tensors only: no CUDA class runs a row band,
+    so a CUDA tensor raises."""
+    dev = _check_seqs(q, r, m, n)
+    if _on_card(dev):
+        raise ValueError('align_band_ref takes CPU tensors only: no CUDA class '
+                         'runs a row band')
+    match, mismatch, o1, o2, e1, e2 = _scoring(sc)
+    B, max_m = q.shape
+    max_n = r.shape[1]
+    width = int(width)
+    if not 1 <= width <= max_n + 1:
+        raise ValueError(f'width {width} outside 1..max_n+1={max_n + 1}')
+    i32, i64 = torch.int32, torch.int64
+    w = torch.arange(width, dtype=i32)[None, :]
+    mi = m[:, None]
+    ni = n[:, None]
+    # Band placement for every row, in the reference's int32 arithmetic
+    # (i*n wraps as it does there).
+    rows = torch.arange(1, max_m + 1, dtype=i64)[None, :]
+    prod = (rows * ni.to(i64) + (1 << 31)) % (1 << 32) - (1 << 31)
+    center = torch.where(mi > 0, torch.div(prod, mi.clamp_min(1).to(i64),
+                                           rounding_mode='floor'), 0)
+    max_off = (ni + 1 - width).clamp_min(0).to(i64)
+    offs = torch.minimum((center - width // 2).clamp_min(0), max_off).to(i32)
+    steps = offs - torch.cat([torch.zeros((B, 1), dtype=i32), offs[:, :-1]], dim=1)
+
+    def row0_at(j):
+        v = torch.where(j == 0, 0, -torch.minimum(o1 + j * e1, o2 + j * e2))
+        return torch.where((j >= 0) & (j <= ni), v, NEG).to(i32)
+
+    def shift(a, k):
+        """out[w] = a[w + k] per item, NEG outside the window."""
+        idx = w + k
+        inside = (idx >= 0) & (idx < width)
+        return torch.where(inside, a.gather(1, idx.clamp(0, width - 1).to(i64)), NEG)
+
+    def f_scan(ht, ext, open_):
+        aug = ht + w * ext
+        run = torch.cummax(aug, dim=1).values
+        prev = torch.cat([negcol, run[:, :-1]], dim=1)
+        opened = torch.cat([torch.ones((B, 1), dtype=torch.bool),
+                            prev[:, 1:] == aug[:, :-1]], dim=1)
+        return prev - open_ - w * ext, opened
+
+    negcol = torch.full((B, 1), NEG, dtype=i32)
+    sent = torch.tensor(-128, dtype=torch.int8)
+    match8 = torch.tensor(match, dtype=i32).to(torch.int8)
+    mismatch8 = torch.tensor(mismatch, dtype=i32).to(torch.int8)
+    tb = torch.empty((B, max_m, width), dtype=torch.uint8)
+    h = e1s = e2s = None
+    for i in range(1, max_m + 1):
+        off = offs[:, i - 1:i]
+        jg = off + w
+        valid = (jg <= ni) & (i <= mi)
+        rb = r.gather(1, (jg - 1).clamp(0, max_n - 1).to(i64))
+        qb = q[:, i - 1:i]
+        sub = torch.where((qb == rb) & (qb < 4) & (rb < 4), match8, mismatch8)
+        sub = torch.where(jg >= 1, sub, sent)
+        if i == 1:
+            h_up, h_dg = row0_at(jg), row0_at(jg - 1)
+            e1_up = e2_up = torch.full((B, width), NEG, dtype=i32)
+        else:
+            s = steps[:, i - 1:i]
+            h_up, h_dg = shift(h, s), shift(h, s - 1)
+            e1_up, e2_up = shift(e1s, s), shift(e2s, s)
+        e1o = h_up - (o1 + e1)
+        e1x = e1_up - e1
+        e1n = torch.maximum(e1o, e1x)
+        e2o = h_up - (o2 + e2)
+        e2x = e2_up - e2
+        e2n = torch.maximum(e2o, e2x)
+        eb = torch.maximum(e1n, e2n)
+        diag = torch.where(sub == sent, NEG, h_dg + sub.to(i32))
+        ht = torch.maximum(diag, eb)
+        f1, op1 = f_scan(ht, e1, o1)
+        f2, op2 = f_scan(ht, e2, o2)
+        fb = torch.maximum(f1, f2)
+        hn = torch.maximum(ht, fb)
+        tb[:, i - 1] = _bits(eb > diag, fb > ht, e2n > e1n, f2 > f1,
+                             e1x > e1o, e2x > e2o, op1, op2)
+        h = torch.where(valid, hn, NEG).to(i32)
+        e1s = torch.where(valid, e1n, NEG).to(i32)
+        e2s = torch.where(valid, e2n, NEG).to(i32)
+    return tb, offs
+
+
 # ------------------------------------------------------------- wavefront
 
 def align_wave(q, r, m, n, doffs, ww, sc):
@@ -317,7 +415,8 @@ def traceback(tb, offs, q, r, m, n, wave):
     length, err byte (``affine_dp._align_and_trace_impl``'s output).
 
     :param tb: uint8 [B, rows, w_dim] tape; rows are DP rows (``wave``
-        false: the tape of ``align_full``, w_dim = max_n + 1) or
+        false: the tape of ``align_full``, w_dim = max_n + 1, or on the CPU
+        the row band of ``align_band_ref``, w_dim < max_n + 1) or
         anti-diagonals (``wave`` true).
     :param offs: int32 [B, rows] band offset of each tape row (zeros for
         ``align_full``'s tape, which the kernel does not read).
@@ -333,11 +432,14 @@ def traceback(tb, offs, q, r, m, n, wave):
     need = max_m + max_n if wave else max_m
     if rows < need or w_dim < 1:
         raise ValueError(f'tape has {rows} rows x {w_dim} lanes, needs {need} rows')
-    if not wave and w_dim != max_n + 1:
-        raise ValueError(f'a full-width tape has max_n + 1 = {max_n + 1} lanes, not {w_dim}')
+    if not wave and w_dim > max_n + 1:
+        raise ValueError(f'a row tape has at most max_n + 1 = {max_n + 1} lanes, not {w_dim}')
     L = trace_len(max_m, max_n)
     if not _on_card(dev):
         return traceback_ref(tb, offs, q, r, m, n, wave)
+    if not wave and w_dim != max_n + 1:
+        raise ValueError(f'a row-banded tape ({w_dim} of max_n + 1 = {max_n + 1} lanes) '
+                         'is walked on the CPU only: no CUDA class runs a row band')
     lib = _build.lib()
     out = torch.empty((B, L // 4 + 5), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):

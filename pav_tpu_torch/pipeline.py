@@ -86,17 +86,22 @@ class HaplotypeResult:
 class Pipeline:
     """End-to-end variant calling engine for one reference + assembly set."""
 
-    def __init__(self, ref, config=None, run_dir=None, log=None, device=None):
+    def __init__(self, ref, config=None, run_dir=None, log=None, device=None,
+                 ladder=None):
         """
         :param ref: Reference SeqStore or FASTA path.
         :param config: Config/dict of parameters (see pav_tpu.config.DEFAULTS).
         :param run_dir: Optional artifact directory.
         :param device: torch device name or object; None takes the config key
             ``device`` (default ``cuda``).
+        :param ladder: the aligner's DP class ladder, ``'cpu'`` or
+            ``'accel'``; None picks by device as the reference picks by
+            backend (``align.aligner.core.resolve_ladder``).
         """
         self.config = config if isinstance(config, Config) else load_config(config)
         self.device = resolve_device(
             device if device is not None else self.config.get('device'))
+        self.ladder = ladder
         # mesh_devices > 1 shards DP batches over a device mesh (contig-batch
         # data parallelism); make_mesh raises when the devices are missing.
         n_mesh = int(self.config.get('mesh_devices', 0) or 0)
@@ -119,7 +124,8 @@ class Pipeline:
     @property
     def aligner(self):
         if self._aligner is None:
-            self._aligner = Aligner(self.ref_store, self.config, device=self.device)
+            self._aligner = Aligner(self.ref_store, self.config, device=self.device,
+                                    ladder=self.ladder)
             if self.mesh is not None:
                 self._aligner.dp = BandedAligner(
                     self._aligner.dp.scoring, device=self.device, mesh=self.mesh)

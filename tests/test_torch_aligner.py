@@ -1,11 +1,14 @@
 """The torch port's aligner (device='cpu', plain kernel versions) against
 the JAX reference's align_store on its accelerator branch.
 
-Both packages see the same numpy genomes and use the same class ladder, so
-their alignment tables must be equal: the genome of test_aligner.py's
-accelerator-branch test (SNVs, query- and ref-major indels), and a
-repeat-rich genome whose tandem arrays produce a balanced 8192-class
-segment, which both packages run through their wavefront band kernel.
+The port runs with ladder='accel', the class ladder of its CUDA path, and
+the reference is forced onto its accelerator branch: both packages see the
+same numpy genomes and use the same class ladder, so their alignment
+tables must be equal: the genome of test_aligner.py's accelerator-branch
+test (SNVs, query- and ref-major indels), and a repeat-rich genome whose
+tandem arrays produce a balanced 8192-class segment, which both packages
+run through their wavefront band kernel. (The CPU ladder is held against
+the unforced reference in test_torch_ladder.py.)
 """
 
 import jax
@@ -39,8 +42,8 @@ def _compare(ref, hap, config, monkeypatch):
     want = _ref_align(RefSeqStore({'chr1': ref}), RefSeqStore({'c1': hap}),
                       config, monkeypatch)
     affine_dp.stats_reset()
-    got = Aligner(SeqStore({'chr1': ref}), config,
-                  device='cpu').align_store(SeqStore({'c1': hap}), 'h1')
+    got = Aligner(SeqStore({'chr1': ref}), config, device='cpu',
+                  ladder='accel').align_store(SeqStore({'c1': hap}), 'h1')
     assert got.shape[0] >= 1
     pd.testing.assert_frame_equal(got.reset_index(drop=True),
                                   want.reset_index(drop=True))

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pav_tpu import native as ref_native
 from pav_tpu.ops import chain_scan as ref_chain_scan
 from pav_tpu_torch import native
@@ -125,3 +126,74 @@ def test_scan_rejects_bad_inputs():
         chain_scan._chain_scan_batch(*(torch.zeros((2, 8), dtype=torch.int32,
                                                    device='meta'),) * 3,
                                      64, 19, 5e4, 1e4, 0.19)
+
+
+@pytest.mark.parametrize('seed,rows_target', [(40, 512), (41, 3), (42, 1)])
+def test_fallback_cuts_pieces_and_matches_native(monkeypatch, seed, rows_target):
+    """Without native.chain_dp, chain_scores cuts the anchors at group
+    changes and rpos gaps > max_dist, packs the pieces into rows (one or
+    several pieces a row), scans every row in one batch, and returns the
+    whole slab's scores and parents: those of native.chain_dp on it."""
+    q, r, g = chip_smoke.chain_piece_anchors(seed)
+    want = ref_native.chain_dp(q, r, g, 19, 64, 50000, 10000, 0.19)
+    monkeypatch.setattr(native, 'chain_dp', lambda *a, **k: None)
+    monkeypatch.setattr(chain_scan, '_ROWS_TARGET', rows_target)
+    chain_scan.launches_reset()
+    f, p = chain_scan.chain_scores(q, r, g, 19, device=CPU)
+    assert np.array_equal(f, want[0]) and np.array_equal(p, want[1])
+    assert chain_scan.PIECES['calls'] == 1
+    assert chain_scan.PIECES['pieces'] == 12
+    assert 1 <= chain_scan.PIECES['rows'] <= 12
+    if rows_target == 3:
+        assert 3 <= chain_scan.PIECES['rows'] < 12, 'pieces share rows'
+    assert (p >= 0).sum() > 100
+
+
+def test_find_chains_fallback_matches_native(monkeypatch):
+    """find_chains without native.chain_dp on a contig whose anchors fall in
+    several groups (two chromosomes, both strands) with rpos gaps: the same
+    chains, in the same order, as with the native kernel."""
+    from pav_tpu_torch import seqcodec
+    from pav_tpu_torch.align.aligner.chain import find_chains
+    from pav_tpu_torch.align.aligner.index import MinimizerIndex
+    from pav_tpu_torch.io.fasta import SeqStore
+
+    from helpers import random_seq
+    rng = np.random.default_rng(43)
+    c1, c2 = random_seq(200000, rng), random_seq(120000, rng)
+    contig = np.concatenate([c1[1000:31000], seqcodec.revcomp(c2[5000:25000]),
+                             c1[100000:130000], c2[60000:80000]])
+    index = MinimizerIndex(SeqStore({'a': c1, 'b': c2}), k=19, w=10)
+    want = find_chains(contig, index, min_chain_score=200, device=CPU)
+    monkeypatch.setattr(native, 'chain_dp', lambda *a, **k: None)
+    chain_scan.launches_reset()
+    got = find_chains(contig, index, min_chain_score=200, device=CPU)
+    assert chain_scan.PIECES['pieces'] >= 4
+    assert len(got) == len(want) >= 4
+    for a, b in zip(got, want):
+        assert (a.chrom_id, a.is_rev, a.score) == (b.chrom_id, b.is_rev, b.score)
+        assert np.array_equal(a.qpos, b.qpos) and np.array_equal(a.rpos, b.rpos)
+
+
+@pytest.mark.parametrize('lookback', [1, 17, 64])
+def test_lookbacks_match_jax_scan_and_native(lookback):
+    slabs = _slabs(44, count=4)
+    got = chain_scan.chain_scores_batch(slabs, 19, lookback=lookback, device=CPU)
+    want = ref_chain_scan.chain_scores_batch(slabs, 19, lookback=lookback)
+    for (qp, rp, gp), (f, p), (fw, pw) in zip(slabs, got, want):
+        fn, pn = ref_native.chain_dp(qp, rp, gp, 19, lookback, 50000, 10000, 0.19)
+        assert np.array_equal(f, fw) and np.array_equal(p, pw)
+        assert np.array_equal(f, fn) and np.array_equal(p, pn)
+
+
+def test_ties_keep_the_oldest():
+    q, r, g = chip_smoke.chain_tie_slab()
+    (f, p), = chain_scan.chain_scores_batch([(q, r, g)], 19, device=CPU)
+    (fw, pw), = ref_chain_scan.chain_scores_batch([(q, r, g)], 19)
+    fn, pn = ref_native.chain_dp(q, r, g, 19, 64, 50000, 10000, 0.19)
+    assert np.array_equal(f, fw) and np.array_equal(p, pw)
+    assert np.array_equal(f, fn) and np.array_equal(p, pn)
+    followers = np.arange(20, len(q), 21)
+    # The first follower's block is its only lookback; later followers
+    # reach back into the previous block, whose follower scores higher.
+    assert p[followers[0]] == 0 and f[followers[0]] == 38

@@ -122,18 +122,16 @@ COHORT2 = (21, [('SampA', 5000), ('SampB', 9000)])
 
 @pytest.fixture(scope='module')
 def cohort2_reference(tmp_path_factory):
-    """pav_tpu's VCF records of each COHORT2 sample (on its accelerator
-    branch, the ladder the port runs)."""
+    """pav_tpu's VCF records of each COHORT2 sample, on its own CPU branch
+    (unforced): the ladder ``--device cpu`` takes in the port."""
     from pav_tpu.pipeline import Pipeline as RefPipeline
-    from test_torch_pipeline import reference_accel_branch
 
     d = tmp_path_factory.mktemp('cohort2_ref')
     _write_cohort(d, *COHORT2)
-    with reference_accel_branch():
-        pipe = RefPipeline(RefSeqStore.from_file(str(d / 'ref.fa')),
-                           {'aligner_min_chain_score': 500}, run_dir=str(d / 'run'))
-        return {name: _vcf_records(pipe.run_sample(name, haps)['vcf'])
-                for name, haps in _assemblies(d, 2, RefSeqStore).items()}
+    pipe = RefPipeline(RefSeqStore.from_file(str(d / 'ref.fa')),
+                       {'aligner_min_chain_score': 500}, run_dir=str(d / 'run'))
+    return {name: _vcf_records(pipe.run_sample(name, haps)['vcf'])
+            for name, haps in _assemblies(d, 2, RefSeqStore).items()}
 
 
 def test_run_cohort_in_process_matches_reference(tmp_path, cohort2_reference):

@@ -265,10 +265,14 @@ def test_wrappers_check_inputs():
         K.traceback(tb[:, :8], offs[:, :8], q, r, m, n, False)
     with pytest.raises(ValueError):
         K.align_wave(q, r, m, n, torch.zeros((4, 31), dtype=torch.int32), 128, sc)
-    # The walker reads a full-width tape as align_full's (max_n + 1 lanes,
-    # zero offsets); the wave kernel takes bands of whole 4-lane groups.
+    # A row tape has at most max_n + 1 lanes; a narrower one is a row band
+    # (align_band_ref's), walked on the CPU; the wave kernel takes bands of
+    # whole 4-lane groups.
+    wide = torch.cat([tb, tb[:, :, :1]], dim=2)
     with pytest.raises(ValueError):
-        K.traceback(tb[:, :, :16].contiguous(), offs, q, r, m, n, False)
+        K.traceback(wide, offs, q, r, m, n, False)
+    band = K.traceback(tb[:, :, :16].contiguous(), offs, q, r, m, n, False)
+    assert band.shape == (4, K.trace_len(16, 16) // 4 + 5)
     with pytest.raises(ValueError):
         K.align_wave(q, r, m, n, torch.zeros((4, 32), dtype=torch.int32), 130, sc)
 

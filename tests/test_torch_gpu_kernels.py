@@ -163,6 +163,95 @@ def test_chain_scan_matches_plain(dev):
     assert (p >= 0).any()
 
 
+def _chain_check(dev, q, r, g, args):
+    """The kernel against _chain_scan_ref on the same CUDA tensors; one
+    counted launch. Returns the kernel's (f, parent)."""
+    q, r, g = (torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+               for a in (q, r, g))
+    before = chain_scan.LAUNCHES['chain_scan']
+    f, p = chain_scan._chain_scan_batch(q, r, g, *args)
+    f_ref, p_ref = chain_scan._chain_scan_ref(q, r, g, *args)
+    torch.cuda.synchronize()
+    assert chain_scan.LAUNCHES['chain_scan'] == before + 1
+    assert torch.equal(f.view(torch.int32), f_ref.view(torch.int32))
+    assert torch.equal(p, p_ref)
+    return f, p
+
+
+@pytest.mark.parametrize('lookback', [1, 2, 31, 32, 33, 64])
+def test_chain_scan_lookbacks(dev, lookback):
+    """Every lookback the slot layout treats apart (one slot pending, both,
+    a full window), on 8 ragged slabs of up to 300 anchors."""
+    _, p = _chain_check(dev, *chip_smoke.chain_inputs(8, 300, 610 + lookback),
+                        (lookback, 19, 50000.0, 10000.0, 0.19))
+    assert (p >= 0).any()
+
+
+@pytest.mark.parametrize('B,n', [(1, 77), (1, 1000), (200, 333)])
+def test_chain_scan_ragged_lengths(dev, B, n):
+    """n not a multiple of 32, one slab (one warp a block) and 200 slabs
+    (four a block)."""
+    _chain_check(dev, *chip_smoke.chain_inputs(B, n, 620 + B), (64, 19, 50000.0, 10000.0, 0.19))
+
+
+@pytest.mark.parametrize('limits', ['engine', 'float32 straddle', 'huge'])
+def test_chain_scan_limits_and_int32_wrap(dev, limits):
+    """Coordinates that wrap past 2^31 (the int32 arithmetic wraps, as in
+    the reference); the engine's limits and fractional ones take the exact
+    integer forms, limits >= 2^23 the int -> float conversions."""
+    q, r, g = chip_smoke.chain_inputs(4, 500, 630)
+    q = (q.astype(np.int64) + 2**31 - 3000).astype(np.uint32).view(np.int32)
+    r = (r.astype(np.int64) + 2**31 - 2990).astype(np.uint32).view(np.int32)
+    lim = {'engine': (50000.0, 10000.0), 'float32 straddle': (120.5, 37.0),
+           'huge': (3.0e9, 3.0e9)}[limits]
+    _chain_check(dev, q, r, g, (64, 19, *lim, 0.19))
+
+
+def test_chain_scan_every_pair_invalid(dev):
+    """Equal query positions (dq = 0) in slab 0, a new group at every
+    anchor in slab 1: every f is k and every parent -1."""
+    n = 100
+    q = np.zeros((2, n), np.int32)
+    q[1] = np.arange(n) * 10
+    r = np.tile(np.arange(n, dtype=np.int32) * 10, (2, 1))
+    g = np.zeros((2, n), np.int32)
+    g[1] = np.arange(n)
+    f, p = _chain_check(dev, q, r, g, (64, 19, 50000.0, 10000.0, 0.19))
+    assert bool((f == 19).all()) and bool((p == -1).all())
+
+
+def test_chain_scan_every_candidate_ties(dev):
+    """Blocks of identical anchors and a follower on their diagonal: every
+    predecessor gives the same candidate and the oldest must win."""
+    q, r, g = chip_smoke.chain_tie_slab()
+    _, p = _chain_check(dev, q[None], r[None], g[None], (64, 19, 50000.0, 10000.0, 0.19))
+    assert int(p[0, 20]) == 0
+
+
+def test_chain_scan_repeated_launches_agree(dev):
+    q, r, g = (torch.from_numpy(a).to(dev) for a in chip_smoke.chain_inputs(16, 700, 640))
+    args = (64, 19, 50000.0, 10000.0, 0.19)
+    f0, p0 = chain_scan._chain_scan_batch(q, r, g, *args)
+    f_ref, p_ref = chain_scan._chain_scan_ref(q, r, g, *args)
+    assert torch.equal(f0, f_ref) and torch.equal(p0, p_ref)
+    for _ in range(20):
+        f, p = chain_scan._chain_scan_batch(q, r, g, *args)
+        assert torch.equal(f, f0) and torch.equal(p, p0)
+
+
+def test_chain_fallback_on_card_matches_cpu(dev, monkeypatch):
+    """chain_scores without native.chain_dp: the pieces in one launch on
+    the card equal the same on the CPU (plain version)."""
+    from pav_tpu_torch import native
+    q, r, g = chip_smoke.chain_piece_anchors(650)
+    monkeypatch.setattr(native, 'chain_dp', lambda *a, **k: None)
+    before = chain_scan.LAUNCHES['chain_scan']
+    f, p = chain_scan.chain_scores(q, r, g, 19, device=dev)
+    assert chain_scan.LAUNCHES['chain_scan'] == before + 1
+    fc, pc = chain_scan.chain_scores(q, r, g, 19, device=torch.device('cpu'))
+    assert np.array_equal(f, fc) and np.array_equal(p, pc)
+
+
 def test_sharded_dp_matches_unsharded_on_card(dev):
     """BandedAligner over the mesh [cuda:0, cuda:0] gives the unsharded
     CIGARs; each shard runs and copies back on its own."""

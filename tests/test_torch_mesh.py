@@ -4,7 +4,9 @@ the JAX reference (tests/test_mesh_sharding.py is the model).
 
 Sharding splits each padded DP batch into equal row shards; items are
 independent, so every CIGAR, alignment table and VCF record must equal the
-unsharded run's exactly.
+unsharded run's exactly. The port runs the accelerator ladder
+(``ladder='accel'``), the classes of its CUDA path, against the reference
+forced onto its accelerator branch.
 """
 
 import gzip
@@ -113,8 +115,8 @@ def test_sharded_aligner_end_to_end():
     ref_store = SeqStore({'c': ref})
     qry = SeqStore({'t': contig})
     cfg = {'aligner_min_chain_score': 500}
-    plain = Aligner(ref_store, cfg, device='cpu').align_store(qry, 'h1')
-    al = Aligner(ref_store, cfg, device='cpu')
+    plain = Aligner(ref_store, cfg, device='cpu', ladder='accel').align_store(qry, 'h1')
+    al = Aligner(ref_store, cfg, device='cpu', ladder='accel')
     al.dp = affine_dp.BandedAligner(al.dp.scoring, device='cpu',
                                     mesh=mesh.make_mesh(8, 'cpu'))
     affine_dp.stats_reset()
@@ -133,7 +135,7 @@ def _vcf_records(path):
 def test_pipeline_under_mesh_vcf_identical(tmp_path):
     """mesh_devices=8 on the CPU writes the VCF records of the port's
     unsharded run and of pav_tpu's run (on its accelerator branch, the
-    ladder the port runs) on the genome of test_mesh_sharding.py."""
+    ladder='accel' of the port) on the genome of test_mesh_sharding.py."""
     rng = np.random.default_rng(23)
     ref = random_seq(120000, rng)
 
@@ -155,7 +157,7 @@ def test_pipeline_under_mesh_vcf_identical(tmp_path):
     def run(mesh_devices, sub):
         c = dict(cfg, mesh_devices=mesh_devices) if mesh_devices else dict(cfg)
         pipe = Pipeline(SeqStore({'chr1': ref}), c, run_dir=str(tmp_path / sub),
-                        device='cpu')
+                        device='cpu', ladder='accel')
         return _vcf_records(pipe.run_sample('S', haps)['vcf'])
 
     ref_haps = {hap: RefSeqStore(dict([tig])) for hap, tig in tigs.items()}
@@ -189,7 +191,7 @@ def test_dp_work_splits_across_shards(tmp_path):
     affine_dp.stats_reset()
     pipe = Pipeline(SeqStore({'chr1': ref}),
                     {'aligner_min_chain_score': 500, 'mesh_devices': 8},
-                    run_dir=str(tmp_path / 'mesh8'), device='cpu')
+                    run_dir=str(tmp_path / 'mesh8'), device='cpu', ladder='accel')
     assert pipe.mesh == [CPU] * 8
     pipe.run_sample('S', {'h1': SeqStore({'t1': hap})}, write_vcf=False)
 

@@ -5,9 +5,11 @@ a 400 bp DEL and a 4 kb inversion, so the density scan runs). The reference
 runs on its accelerator branch (the class ladder, transposed DP, resident
 gather and wavefront band kernel the port implements), forced on the CPU
 backend as test_aligner.py does; the port runs with device='cpu', i.e. the
-plain versions of its kernels. Held: identical VCF text (apart from the
-fileDate line), identical per-haplotype stage artifact tables
-(pipeline.py _HAP_ARTIFACTS) and identical merged tables.
+plain versions of its kernels, and ladder='accel', the classes of its CUDA
+path. Held: identical VCF text (apart from the fileDate line), identical
+per-haplotype stage artifact tables (pipeline.py _HAP_ARTIFACTS) and
+identical merged tables. The CLI case runs ``--device cpu``, which takes the
+CPU ladder, against the reference on its own (unforced) CPU branch.
 """
 
 import contextlib
@@ -85,8 +87,18 @@ def runs(tmp_path_factory):
     port_dir = str(tmp_path_factory.mktemp('port_run'))
     haps = {'h1': SeqStore({'tig1_1': h1}), 'h2': SeqStore({'tig2_1': h2})}
     port_res = Pipeline(SeqStore({'chr1': ref}), dict(CONFIG), run_dir=port_dir,
-                        device='cpu').run_sample('samp1', haps)
+                        device='cpu', ladder='accel').run_sample('samp1', haps)
     return (ref, h1, h2), ref_res, port_res, ref_dir, port_dir
+
+
+@pytest.fixture(scope='module')
+def reference_cpu_vcf(tmp_path_factory):
+    """The reference's VCF of the genome on its own CPU branch (unforced)."""
+    ref, h1, h2 = _genome()
+    ref_haps = {'h1': RefSeqStore({'tig1_1': h1}), 'h2': RefSeqStore({'tig2_1': h2})}
+    run_dir = str(tmp_path_factory.mktemp('ref_cpu_run'))
+    return RefPipeline(RefSeqStore({'chr1': ref}), dict(CONFIG),
+                       run_dir=run_dir).run_sample('samp1', ref_haps)['vcf']
 
 
 def test_port_vcf_matches_reference(runs):
@@ -156,8 +168,10 @@ def test_port_runs_its_dp_paths(runs):
     assert dp_kernels.LAUNCHES == {'full': 0, 'wave': 0, 'traceback': 0}
 
 
-def test_cli_matches_reference(runs, tmp_path):
-    (ref, h1, h2), ref_res, _, _, _ = runs
+def test_cli_matches_reference(runs, reference_cpu_vcf, tmp_path):
+    """``--device cpu`` takes the CPU ladder: the VCF of the reference on
+    its own CPU branch."""
+    (ref, h1, h2), _, _, _, _ = runs
     write_fasta({'chr1': seqcodec.decode(ref)}, str(tmp_path / 'ref.fa'))
     write_fasta({'tig1_1': seqcodec.decode(h1)}, str(tmp_path / 'h1.fa'))
     write_fasta({'tig2_1': seqcodec.decode(h2)}, str(tmp_path / 'h2.fa'))
@@ -169,7 +183,7 @@ def test_cli_matches_reference(runs, tmp_path):
                    '--run-dir', str(run_dir), '--device', 'cpu',
                    '--set', 'aligner_min_chain_score=500'])
     assert rc == 0
-    assert _vcf_text(str(run_dir / 'samp1.vcf.gz')) == _vcf_text(ref_res['vcf'])
+    assert _vcf_text(str(run_dir / 'samp1.vcf.gz')) == _vcf_text(reference_cpu_vcf)
     assert os.path.isfile(run_dir / 'samp1' / 'h2' / 'sv_inv.tsv.gz')
 
 
