@@ -10,7 +10,8 @@ chain scan of the checkout it sits in (phase 3's inputs and device timing,
 no parity) at every phase-3 shape and tape, and prints one JSON line
 {"root", "card", "chain_step_ns", "kernels": {"dp_full": [[B, max_m, max_n,
 ms, bound_ms, how], ...], "dp_wave": [[B, max_m, max_n, width, ms,
-bound_ms, how], ...], "traceback": [[tape, ms, bound_ms, how, longest path,
+bound_ms, how], ...], "dp_band": [[B, max_m, max_n, width, ms, bound_ms,
+how], ...], "traceback": [[tape, ms, bound_ms, how, longest path,
 windowed ms, how], ...], "chain_scan": [[label, B, n, ms, how, bound_ms,
 dependency_bound_ms, native.chain_dp host ms], ...]}} (the chain scan also
 at 64 x 4096 with limits of 2^31, its int -> float path); the walker's
@@ -30,7 +31,10 @@ Phases (each prints its lines; any failure exits nonzero):
      on CUDA tensors at the DP classes of the main path and, for the chain
      scan, at 64 slabs x 4096 anchors; the kernel's device time from a
      fresh ``--kernel-times`` process and the plain version's time (one
-     run, the compared one). The walker runs on the tapes of the first
+     run, the compared one). The row band (dp_band) at every BAND_SHAPES
+     class on random and related inputs: score, tape and offsets against
+     align_band_ref, which runs on CPU copies (it is CPU only). The walker
+     runs on the tapes of the first
      TRACED_FULL classes, of both WAVE_SHAPES and on edge tapes (a
      whole-row deletion run, a whole-column insertion run, padded items
      with m = n = 0, B = 1, a band exit that sets err); each line gives the
@@ -66,7 +70,12 @@ Phases (each prints its lines; any failure exits nonzero):
      process, then through a 2-process cohort (``--coordinator``,
      ``--ship-artifacts``) on the one card, both without a profiler (the
      samples-per-hour ratio), then the cohort again with ``--profile-dir``;
-     equal VCF records, kernels in each profiled process's trace.
+     equal VCF records, kernels in each profiled process's trace;
+ 10. entry points: ``entry.entry()`` on the card against align_band_ref
+     (bit for bit), then ``entry.dryrun_multichip(2)`` over the mesh
+     [cuda:0, cuda:0] against the same dry run on the CPU; the row band,
+     full-width, walker and chain scan kernels must launch (dp_band's
+     launches in the kernels line are this phase's).
 The line before last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and no network;
 imports no jax.
@@ -102,6 +111,11 @@ FULL_SHAPES = [(4096, 16, 16), (512, 256, 256), (64, 2048, 2048), (16, 16, 32768
                (256, 16, 128)]
 TRACED_FULL = 6   # the first FULL_SHAPES whose tapes also go through the walker
 WAVE_SHAPES = [(8, 8192, 8192, 513), (4, 8192, 8192, 2049)]
+# Row-band classes (B, max_m, max_n, width): entry(), the dry run's device
+# step, then the CPU ladder's real band classes at its batch cap
+# (align/aligner/core.py _cpu_bucket, _cpu_shape_batch).
+BAND_SHAPES = [(4, 64, 72, 65), (8, 32, 32, 33), (4096, 256, 256, 33),
+               (255, 2048, 2048, 257), (31, 8192, 8192, 513), (8, 8192, 8192, 4097)]
 CHAIN_SHAPE = (64, 4096)        # phase 3 chain scan parity: slabs x anchors
 CHAIN_LONG = 1 << 20            # phase 3 chain scan alone: one slab
 CHAIN_ARGS = (64, 19, 50000.0, 10000.0, 0.19)   # lookback, k, limits, gap scale
@@ -112,8 +126,8 @@ CHAIN_PROBE_STEPS = 1 << 20     # steps of the dependency-chain probe
 DENSITY_LONG = (4, 1 << 18)     # phase 3 density: regions x n_pad
 TRACE_KERNEL = 'dp_full'       # phase 9: a dp_full kernel must appear in each trace
 # Kernel names hold these (the walker's kernels are traceback_*).
-NEEDLES = {'dp_full': 'dp_full', 'dp_wave': 'dp_wave', 'traceback': 'traceback',
-           'chain_scan': 'chain_scan'}
+NEEDLES = {'dp_full': 'dp_full', 'dp_wave': 'dp_wave', 'dp_band': 'dp_band',
+           'traceback': 'traceback', 'chain_scan': 'chain_scan'}
 # Bounds (bound_ms): the larger of bytes over HBM and operations over the
 # peak rate of their type. NVIDIA H100 SXM (NVIDIA's data sheet): 3.35 TB/s
 # HBM3; 67 TFLOP/s float32 outside the tensor cores. int32, which the data
@@ -135,15 +149,22 @@ FP32_OPS_S = 67e12
 # running argmax: 20 float32/int32 operations. Density, per region: nine
 # real FFTs of N = 4 n_pad points (3 histograms, 3 kernels, 3 inverse) at
 # 2.5 N log2 N float32 operations each (half a complex FFT's 5 N log2 N),
-# and the 3 (N/2 + 1) complex products at 6 each.
+# and the 3 (N/2 + 1) complex products at 6 each. Row band, counted on
+# align_band_ref's recurrence as the full width is on align_full_ref's: the
+# full-width cell (40) plus the global column off + w (1), the window tests
+# of the two shifted indices w + s and w + s - 1 (2), the selects of the
+# four shifted neighbours (H up, H diagonal, E1 up, E2 up) (4) and the
+# column-0 sentinel select of the substitution (1): 48.
 OPS_FULL_CELL = 40
 OPS_WAVE_CELL = 49
+OPS_BAND_CELL = 48
 OPS_TRACE_STEP = 40
 OPS_CHAIN_PAIR = 20
 KERNELS = {
     # name: (source, TPU kernel replaced, LAUNCHES key)
     'dp_full': ('pav_tpu_torch/csrc/dp_full.cu', 'pav_tpu/ops/pallas_dp.py:62', 'full'),
     'dp_wave': ('pav_tpu_torch/csrc/dp_wave.cu', 'pav_tpu/ops/pallas_dp.py:227', 'wave'),
+    'dp_band': ('pav_tpu_torch/csrc/dp_band.cu', 'pav_tpu/ops/affine_dp.py:192', 'band'),
     'traceback': ('pav_tpu_torch/csrc/traceback.cu', 'pav_tpu/ops/affine_dp.py:767',
                   'traceback'),
     'chain_scan': ('pav_tpu_torch/csrc/chain_scan.cu', 'pav_tpu/ops/chain_scan.py:20',
@@ -656,6 +677,15 @@ def wave_bound(B, mm, nn, ww):
                  B * (mm + nn + 8) + 4 * B * (mm + nn) + cells)
 
 
+def band_bound(B, mm, nn, width):
+    """dp_band at (B, max_m, max_n, width): every window cell is computed
+    and is an output byte; q, r and the lengths read, offsets and the last
+    row's scores written."""
+    cells = B * mm * width
+    return bound(cells * OPS_BAND_CELL, INT32_OPS_S,
+                 B * (mm + nn + 8) + cells + 4 * B * (mm + width))
+
+
 def path_lengths(out):
     """The path length of every row of a fused walker output."""
     lens = out[:, -5:-1].cpu().numpy().astype(np.int64)
@@ -784,6 +814,7 @@ def phase_kernels(dev, kt):
         if i == 0:
             stats['dp_wave'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
         tapes.append((f'wave B={B} {mm}x{nn} w{width}', tb, doffs, q, r, m, n, True))
+    phase_band(dev, stats, kt)
     tapes += edge_tapes(dev)
     for i, (label, tb, offs, q, r, m, n, wave) in enumerate(tapes):
         out = K.traceback(tb, offs, q, r, m, n, wave)
@@ -804,6 +835,44 @@ def phase_kernels(dev, kt):
         if i == 0:
             stats['traceback'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
     return stats
+
+
+def band_cases(B, mm, nn, seed):
+    """The row-band inputs of phase 3 at one class: random and related
+    pairs (ragged m and n, some items shorter than the class)."""
+    return (('random', dp_inputs(B, mm, nn, seed)),
+            ('related', related_inputs(B, mm, nn, seed + 1)))
+
+
+def phase_band(dev, stats, kt):
+    """dp_band against align_band_ref at every BAND_SHAPES class, on
+    random and related inputs: score, tape and offsets bit for bit; the
+    plain version runs on CPU copies of the inputs (it is CPU only)."""
+    import torch
+    from pav_tpu_torch.ops import dp_kernels as K
+    for i, (B, mm, nn, width) in enumerate(BAND_SHAPES):
+        plain = []
+        for kind, arrays in band_cases(B, mm, nn, 400 + 2 * i):
+            host = [torch.from_numpy(a) for a in arrays]
+            got = K.align_band(*(t.to(dev) for t in host), width, SCORING)
+            t0 = time.perf_counter()
+            want = K.align_band_ref(*host, width, SCORING, with_score=True)
+            plain.append(1e3 * (time.perf_counter() - t0))
+            for name, g, w in zip(('score', 'tape', 'offsets'), got, want):
+                if not torch.equal(g.cpu(), w):
+                    fail(f'dp_band {name} differs from align_band_ref at B={B} '
+                         f'{mm}x{nn} width {width} ({kind} inputs)')
+            stats['dp_band']['err'] = max(stats['dp_band']['err'],
+                                          max_abs_err(got[1].cpu(), want[1]))
+        ms, how = kt['dp_band'][i][4], kt['dp_band'][i][6]
+        bms, by = band_bound(B, mm, nn, width)
+        log(f'kernel dp_band B={B} {mm}x{nn} width {width}: bit-identical (score, tape, '
+            f'offsets; random and related), {ms:.4f} ms device ({how}); plain '
+            f'{plain[0]:.1f} / {plain[1]:.1f} ms on the CPU (one run each); bound '
+            f'{bms:.5f} ms ({by}), {100 * bms / ms:.1f}% of bound')
+        if i == 0:
+            stats['dp_band'].update(ms=ms, ms_by=how, plain_ms=plain[0], bound_ms=bms,
+                                    bound_by=by)
 
 
 def phase_chain_scan(dev, stats, kt):
@@ -851,6 +920,35 @@ def phase_chain_scan(dev, stats, kt):
     log(f'kernel chain_scan {B} x {n}: plain version {pms:.1f} ms on the card, one run')
 
 
+def check_states(label, regions, sigmas, got, want, dev):
+    """smoothed_states_batch's CUDA states ``got`` against its CPU states
+    ``want``: densities within rtol 1e-3 + 1e-5 of the largest, states
+    equal wherever the CPU's top two densities differ by more than 1e-4
+    relative. Returns (undecided positions, max density difference)."""
+    import torch
+    from pav_tpu_torch.ops import kde
+    pad = kde._next_pow2(max(max(len(x) for x in regions), 16))
+    batch = np.full((len(regions), pad), -1, dtype=np.int8)
+    for i, x in enumerate(regions):
+        batch[i, :len(x)] = x
+    sig = torch.from_numpy(np.asarray(sigmas, dtype=np.float32).reshape(len(regions), 3))
+    _, d_cpu = kde._density_state_kernel_batch(torch.from_numpy(batch), sig, pad, 3)
+    _, d_dev = kde._density_state_kernel_batch(torch.from_numpy(batch).to(dev),
+                                               sig.to(dev), pad, 3)
+    d_cpu = d_cpu.numpy()
+    d_dev = d_dev.cpu().numpy()
+    if not np.all(np.abs(d_dev - d_cpu) <= 1e-3 * np.abs(d_cpu) + 1e-5 * np.abs(d_cpu).max()):
+        fail(f'density {label}: CUDA densities outside the float32 tolerance')
+    undecided = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        top2 = np.sort(d_cpu[i, :, :len(a)], axis=0)[-2:]
+        decided = (top2[1] - top2[0]) > 1e-4 * np.maximum(np.abs(top2[1]), 1e-30)
+        undecided += int((~decided).sum())
+        if not np.array_equal(a[decided], b[decided]):
+            fail(f'density {label}: CUDA and CPU states differ at decided positions')
+    return undecided, float(np.abs(d_dev - d_cpu).max())
+
+
 def phase_density(dev):
     """smoothed_states_batch on CUDA against the same call on the CPU, at
     the 16 regions of test_mesh_sharding.py and at DENSITY_LONG. States must
@@ -870,29 +968,10 @@ def phase_density(dev):
         t0 = time.perf_counter()
         want = kde.smoothed_states_batch(regions, sigmas, device=cpu)
         cpu_ms = 1e3 * (time.perf_counter() - t0)
-        pad = kde._next_pow2(max(len(x) for x in regions))
-        batch = np.full((len(regions), pad), -1, dtype=np.int8)
-        for i, x in enumerate(regions):
-            batch[i, :len(x)] = x
-        sig = torch.from_numpy(np.asarray(sigmas, dtype=np.float32))
-        _, d_cpu = kde._density_state_kernel_batch(torch.from_numpy(batch), sig, pad, 3)
-        _, d_dev = kde._density_state_kernel_batch(torch.from_numpy(batch).to(dev),
-                                                   sig.to(dev), pad, 3)
-        d_cpu = d_cpu.numpy()
-        d_dev = d_dev.cpu().numpy()
-        if not np.all(np.abs(d_dev - d_cpu)
-                      <= 1e-3 * np.abs(d_cpu) + 1e-5 * np.abs(d_cpu).max()):
-            fail(f'density {label}: CUDA densities outside the float32 tolerance')
-        undecided = 0
-        for i, (a, b) in enumerate(zip(got, want)):
-            top2 = np.sort(d_cpu[i, :, :len(a)], axis=0)[-2:]
-            decided = (top2[1] - top2[0]) > 1e-4 * np.maximum(np.abs(top2[1]), 1e-30)
-            undecided += int((~decided).sum())
-            if not np.array_equal(a[decided], b[decided]):
-                fail(f'density {label}: CUDA and CPU states differ at decided positions')
-        bms, by = density_bound(len(regions), pad)
+        undecided, diff = check_states(label, regions, sigmas, got, want, dev)
+        bms, by = density_bound(len(regions), kde._next_pow2(max(len(x) for x in regions)))
         log(f'density {label}: decisions equal ({undecided} undecided positions), '
-            f'max |dens diff| {float(np.abs(d_dev - d_cpu).max()):.3g}; '
+            f'max |dens diff| {diff:.3g}; '
             f'{ms:.2f} ms on the card (one call after a warm-up, host copies '
             f'included), {cpu_ms:.1f} ms on the CPU; bound {bms:.4f} ms ({by}: '
             f'FFT float32 operations over 67 TFLOP/s)')
@@ -947,7 +1026,7 @@ def kernel_times(card, dev, dp_full_only=False):
     import torch
     from pav_tpu_torch import _build
     from pav_tpu_torch.ops import affine_dp, dp_kernels as K
-    rows = {'dp_full': [], 'dp_wave': [], 'traceback': []}
+    rows = {'dp_full': [], 'dp_wave': [], 'dp_band': [], 'traceback': []}
     tapes = []
     for i, (B, mm, nn) in enumerate(FULL_SHAPES):
         q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(B, mm, nn, 100 + i))
@@ -970,6 +1049,12 @@ def kernel_times(card, dev, dp_full_only=False):
         rows['dp_wave'].append([B, mm, nn, width, ms, wave_bound(B, mm, nn, ww)[0], how])
         tapes.append((f'wave B={B} {mm}x{nn} w{width}', K.align_wave(q, r, m, n, doffs, ww, SCORING),
                       doffs, q, r, m, n, True))
+    for i, (B, mm, nn, width) in enumerate(BAND_SHAPES):
+        q, r, m, n = (torch.from_numpy(a).to(dev)
+                      for a in band_cases(B, mm, nn, 400 + 2 * i)[0][1])
+        ms, how = device_ms(lambda: K.align_band(q, r, m, n, width, SCORING),
+                            3 if mm * width >= 1 << 22 else 10, NEEDLES['dp_band'])
+        rows['dp_band'].append([B, mm, nn, width, ms, band_bound(B, mm, nn, width)[0], how])
     tapes += edge_tapes(dev)
     # Where the library can force it, the walker's windowed design at every
     # tape too (the default stages small tapes whole).
@@ -1081,6 +1166,7 @@ def main():
         main_launches, genome = drive_main_path(work, card, dev)
         for key, count in drive_scale_out(work, card, dev, genome).items():
             main_launches[key] += count
+    main_launches['band'] = phase_entry(card, dev)['band']
 
     if 'jax' in sys.modules:
         fail('jax was imported')
@@ -1353,6 +1439,65 @@ def drive_scale_out(work, card, dev, genome):
 
     # 9. cohort
     phase_cohort(work, card, genome)
+    return launches
+
+
+def phase_entry(card, dev):
+    """10. The entry points on the card: entry()'s fn against the plain
+    version (bit for bit), then dryrun_multichip(2) over the mesh [cuda:0,
+    cuda:0] against the same dry run on the CPU. Returns the launches of
+    the two card runs (read from 0 just before to just after them)."""
+    import torch
+    from pav_tpu_torch import entry
+    from pav_tpu_torch.ops import chain_scan, dp_kernels as K
+    from pav_tpu_torch.ops import kde
+    K.launches_reset()
+    chain_scan.launches_reset()
+    t0 = time.time()
+    fn, args = entry.entry(device=dev)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    dry = entry.dryrun_multichip(2, mesh=[dev, dev])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(K.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    for key in ('band', 'full', 'traceback', 'chain_scan'):
+        if launches[key] <= 0:
+            fail(f'entry points: no {key} launch on the card: {launches}')
+    if any(a.device.type != 'cuda' for a in args):
+        fail('entry(): the example arrays are not on the card')
+    want = K.align_band_ref(*(a.cpu() for a in args), 65, entry.SCORING, with_score=True)
+    for name, g, w in zip(('score', 'tape', 'offsets'), got, want):
+        if not torch.equal(g.cpu(), w):
+            fail(f'entry(): the {name} on the card differs from align_band_ref')
+    cpu = entry.dryrun_multichip(2, device='cpu')
+    for (gl, go), (wl, wo) in zip(dry['cigars'], cpu['cigars']):
+        if not (np.array_equal(gl, wl) and np.array_equal(go, wo)):
+            fail('dryrun_multichip: the sharded aligner\'s CIGARs differ from the CPU run')
+    for name in ('score', 'tb', 'offs'):
+        if not torch.equal(dry[name], cpu[name]):
+            fail(f'dryrun_multichip: the device step\'s {name} differs from the CPU run')
+    d_dev, d_cpu = dry['dens'].numpy(), cpu['dens'].numpy()
+    if not np.all(np.abs(d_dev - d_cpu) <= 1e-3 * np.abs(d_cpu) + 1e-5 * np.abs(d_cpu).max()):
+        fail('dryrun_multichip: the density convolution outside the float32 tolerance')
+    if abs(dry['total'] - cpu['total']) > 1e-5 * abs(cpu['total']):
+        fail(f'dryrun_multichip: total {dry["total"]} against {cpu["total"]} on the CPU')
+    chains = [dry['chain']] + dry['chain_batch']
+    for (gf, gp), (wf, wp) in zip(chains, [cpu['chain']] + cpu['chain_batch']):
+        if not (np.array_equal(gf, wf) and np.array_equal(gp, wp)):
+            fail('dryrun_multichip: the chain scores differ from the CPU run')
+    regions = dry['regions']
+    sigmas = [kde.scott_sigmas(x, 0.25) for x in regions]
+    undecided, _ = check_states('dryrun_multichip', regions, sigmas, dry['states'],
+                                cpu['states'], dev)
+    for key in (('svindel_ins', 'pass'), ('svindel_del', 'pass'), ('snv_snv', 'pass')):
+        if list(dry['merged_mesh'][key]['ID']) != list(cpu['merged_mesh'][key]['ID']):
+            fail(f'dryrun_multichip: the sharded pipeline\'s {key} calls differ from the CPU run')
+    log(f'entry points: entry() on the card bit-identical to align_band_ref (score, tape, '
+        f'offsets); dryrun_multichip(2) over [cuda:0, cuda:0] equal to the CPU dry run '
+        f'(CIGARs, DP, chains exact; density within float32, {undecided} undecided states; '
+        f'pipeline calls equal), total {dry["total"]:.4f}; {wall:.2f} s for both card runs; '
+        f'launches {launches} on {card}')
     return launches
 
 

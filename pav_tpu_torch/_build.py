@@ -43,6 +43,12 @@ SIGNATURES = {
     # match, mismatch, o1, o2, e1, e2, stream
     'pav_dp_wave': ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _I, _P], _I),
+    # q, r, m, n, score, tb, offs, scratch, B, max_m, max_n, width,
+    # match, mismatch, o1, o2, e1, e2, stream
+    'pav_dp_band': ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _P], _I),
+    # width -> ints of global scratch per item (0: state in shared memory)
+    'pav_dp_band_scratch_ints': ([_I], _I),
     # tb, offs, q, r, m, n, out, B, rows, w_dim, max_m, max_n, L, wave, stream
     'pav_traceback': ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _P], _I),

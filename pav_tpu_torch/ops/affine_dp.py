@@ -7,7 +7,7 @@ cell (layout below), the traceback kernel walks each item's tape into a
 compact 2-bit step tape, and one buffer per launch returns to the host.
 Full-width classes run ``dp_kernels.align_full`` (rows). Banded classes run
 ``dp_kernels.align_wave`` (anti-diagonals), as the reference does on an
-accelerator, or, on the CPU ladder, ``dp_kernels.align_band_ref`` (row
+accelerator, or, on the CPU ladder, ``dp_kernels.align_band`` (row
 windows), as the reference does on its CPU backend. The kernels are CUDA for
 CUDA tensors and their plain versions for CPU tensors (``dp_kernels``).
 
@@ -140,7 +140,8 @@ def align_and_trace(q, r, m, n, max_m, width, scoring, band='wave'):
         narrower a band of the kind ``band`` names.
     :param band: ``'wave'``, the wavefront band of ``_wave_width(width)``
         lanes (the accelerator ladder), or ``'row'``, the row band of
-        ``width`` columns (the CPU ladder; CPU tensors only).
+        ``width`` columns (the CPU ladder; its tapes are walked on the CPU
+        only).
     """
     max_n = r.shape[1]
     if q.shape[1] != max_m:
@@ -150,7 +151,7 @@ def align_and_trace(q, r, m, n, max_m, width, scoring, band='wave'):
         tb, offs = dp_kernels.align_full(q, r, m, n, sc)
         wave = False
     elif 0 < width < max_n + 1 and band == 'row':
-        tb, offs = dp_kernels.align_band_ref(q, r, m, n, width, sc)
+        _, tb, offs = dp_kernels.align_band(q, r, m, n, width, sc)
         wave = False
     elif 0 < width < max_n + 1:
         if band != 'wave':

@@ -7,12 +7,15 @@ counts its kernel launches in ``LAUNCHES``.
 
 * ``align_full``  -> ``csrc/dp_full.cu``  (replaces ``pallas_dp._dp_kernel``)
 * ``align_wave``  -> ``csrc/dp_wave.cu``  (replaces ``pallas_dp._wave_kernel``)
+* ``align_band``  -> ``csrc/dp_band.cu``  (replaces the row-banded XLA
+  program ``affine_dp._align_batch``)
 * ``traceback``   -> ``csrc/traceback.cu`` (replaces the XLA walker in
   ``affine_dp._align_and_trace_impl``)
 
-``align_band_ref`` is the row-banded DP of ``affine_dp._align_batch``, which
-the reference runs only on its CPU ladder: it has no kernel and takes CPU
-tensors only, and ``traceback`` walks its tapes on the CPU only.
+The row band is what the reference's CPU ladder and its entry points run.
+Its plain version ``align_band_ref`` takes CPU tensors only, and
+``traceback`` walks row-banded tapes on the CPU only: no CUDA class of the
+aligner runs a row band.
 
 The plain versions follow the reference's recurrences as batched tensor ops
 with a Python loop over rows, diagonals or steps, and produce the same bytes
@@ -32,7 +35,7 @@ from .. import _build
 NEG = -(1 << 29)
 STEP_EQ, STEP_X, STEP_I, STEP_D, STEP_DONE = 0, 1, 2, 3, 255
 
-LAUNCHES = {'full': 0, 'wave': 0, 'traceback': 0}
+LAUNCHES = {'full': 0, 'wave': 0, 'band': 0, 'traceback': 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -195,24 +198,63 @@ def align_full_ref(q, r, m, n, sc):
 
 # ------------------------------------------------------------- row band
 
-def align_band_ref(q, r, m, n, width, sc):
-    """Row-banded DP tape of ``affine_dp._align_batch``: (tb uint8 [B, max_m,
-    width], offs int32 [B, max_m]). Row i's window starts at column
-    ``offs[:, i-1] = clip(i*n//m - width//2, 0, max(n+1-width, 0))``; the
-    substitution rows are int8 with a -128 sentinel at column 0; row 1 reads
-    the analytic row 0; F is an exclusive prefix max over the window
-    (opening wins ties). CPU tensors only: no CUDA class runs a row band,
-    so a CUDA tensor raises."""
-    dev = _check_seqs(q, r, m, n)
-    if _on_card(dev):
-        raise ValueError('align_band_ref takes CPU tensors only: no CUDA class '
-                         'runs a row band')
-    match, mismatch, o1, o2, e1, e2 = _scoring(sc)
-    B, max_m = q.shape
-    max_n = r.shape[1]
+def _band_width(width, max_n):
+    if max_n < 1:
+        raise ValueError('a row band needs max_n >= 1')
     width = int(width)
     if not 1 <= width <= max_n + 1:
         raise ValueError(f'width {width} outside 1..max_n+1={max_n + 1}')
+    return width
+
+
+def align_band(q, r, m, n, width, sc):
+    """Row-banded DP of ``affine_dp._align_batch``: (score int32 [B, width],
+    the masked H of row max_m; tb uint8 [B, max_m, width]; offs int32 [B,
+    max_m]), the outputs of the reference's ``_align_batch``."""
+    dev = _check_seqs(q, r, m, n)
+    sc = _scoring(sc)
+    B, max_m = q.shape
+    max_n = r.shape[1]
+    width = _band_width(width, max_n)
+    if not _on_card(dev):
+        return align_band_ref(q, r, m, n, width, sc, with_score=True)
+    lib = _build.lib()
+    score = torch.empty((B, width), dtype=torch.int32, device=dev)
+    tb = torch.empty((B, max_m, width), dtype=torch.uint8, device=dev)
+    offs = torch.empty((B, max_m), dtype=torch.int32, device=dev)
+    ints = lib.pav_dp_band_scratch_ints(width)
+    scratch = (torch.empty(B * ints, dtype=torch.int32, device=dev)
+               if ints else None)
+    with torch.cuda.device(dev):
+        code = lib.pav_dp_band(
+            q.data_ptr(), r.data_ptr(), m.data_ptr(), n.data_ptr(),
+            score.data_ptr(), tb.data_ptr(), offs.data_ptr(),
+            scratch.data_ptr() if ints else None,
+            B, max_m, max_n, width, *sc,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, 'pav_dp_band')
+    _count('band')
+    return score, tb, offs
+
+
+def align_band_ref(q, r, m, n, width, sc, with_score=False):
+    """Plain version of ``align_band``: the row-banded DP tape of
+    ``affine_dp._align_batch``, (tb uint8 [B, max_m, width], offs int32 [B,
+    max_m]), or with ``with_score`` (score int32 [B, width], tb, offs),
+    score being the masked H of row max_m. Row i's window starts at column
+    ``offs[:, i-1] = clip(i*n//m - width//2, 0, max(n+1-width, 0))``; the
+    substitution rows are int8 with a -128 sentinel at column 0; row 1 reads
+    the analytic row 0; F is an exclusive prefix max over the window
+    (opening wins ties). CPU tensors only: a CUDA tensor raises (its path
+    is ``align_band``'s kernel)."""
+    dev = _check_seqs(q, r, m, n)
+    if _on_card(dev):
+        raise ValueError('align_band_ref takes CPU tensors only: a row band on '
+                         'the card is align_band')
+    match, mismatch, o1, o2, e1, e2 = _scoring(sc)
+    B, max_m = q.shape
+    max_n = r.shape[1]
+    width = _band_width(width, max_n)
     i32, i64 = torch.int32, torch.int64
     w = torch.arange(width, dtype=i32)[None, :]
     mi = m[:, None]
@@ -284,7 +326,7 @@ def align_band_ref(q, r, m, n, width, sc):
         h = torch.where(valid, hn, NEG).to(i32)
         e1s = torch.where(valid, e1n, NEG).to(i32)
         e2s = torch.where(valid, e2n, NEG).to(i32)
-    return tb, offs
+    return (h, tb, offs) if with_score else (tb, offs)
 
 
 # ------------------------------------------------------------- wavefront

@@ -87,7 +87,7 @@ class Pipeline:
     """End-to-end variant calling engine for one reference + assembly set."""
 
     def __init__(self, ref, config=None, run_dir=None, log=None, device=None,
-                 ladder=None):
+                 ladder=None, mesh=None):
         """
         :param ref: Reference SeqStore or FASTA path.
         :param config: Config/dict of parameters (see pav_tpu.config.DEFAULTS).
@@ -97,6 +97,10 @@ class Pipeline:
         :param ladder: the aligner's DP class ladder, ``'cpu'`` or
             ``'accel'``; None picks by device as the reference picks by
             backend (``align.aligner.core.resolve_ladder``).
+        :param mesh: a list of devices to shard the DP launches over (a
+            device may repeat), the one way to name the devices; config
+            ``mesh_devices`` only counts them (``make_mesh(mesh_devices,
+            device)``). Giving both raises.
         """
         self.config = config if isinstance(config, Config) else load_config(config)
         self.device = resolve_device(
@@ -105,7 +109,13 @@ class Pipeline:
         # mesh_devices > 1 shards DP batches over a device mesh (contig-batch
         # data parallelism); make_mesh raises when the devices are missing.
         n_mesh = int(self.config.get('mesh_devices', 0) or 0)
-        self.mesh = make_mesh(n_mesh, self.device) if n_mesh > 1 else None
+        if mesh is not None:
+            if n_mesh > 1:
+                raise ValueError('give the mesh either as mesh= or as config '
+                                 'mesh_devices, not both')
+            self.mesh = [resolve_device(d) for d in mesh]
+        else:
+            self.mesh = make_mesh(n_mesh, self.device) if n_mesh > 1 else None
         self.ref_store = ref if isinstance(ref, SeqStore) else SeqStore.from_file(ref)
         self.run_dir = run_dir
         self.log = log if log is not None else sys.stderr

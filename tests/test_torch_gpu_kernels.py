@@ -369,3 +369,131 @@ def test_dp_wave_repeated_launches_agree(dev, ww):
         tb = K.align_wave(q, r, m, n, doffs, ww, SC)
         torch.cuda.synchronize()
         assert torch.equal(tb, want)
+
+
+# ------------------------------------------------------------- row band
+
+def _band_check(dev, arrays, width, reps=1):
+    """csrc/dp_band.cu on the card against align_band_ref on CPU copies of
+    the same arrays (the plain version is CPU only): score, tape and offsets
+    bit for bit, one launch counted a call."""
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    want = K.align_band_ref(*host, width, SC, with_score=True)
+    card = [t.to(dev) for t in host]
+    for _ in range(reps):
+        before = K.LAUNCHES['band']
+        got = K.align_band(*card, width, SC)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES['band'] == before + 1
+        for name, g, w in zip(('score', 'tape', 'offsets'), got, want):
+            assert g.device == dev
+            assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize('kind', ['random', 'related'])
+@pytest.mark.parametrize('shape', chip_smoke.BAND_SHAPES, ids=str)
+def test_dp_band_matches_plain(dev, shape, kind):
+    """Every BAND_SHAPES class (the entry, the dry run, the CPU ladder's
+    band classes) at a reduced batch, random and related pairs."""
+    B, mm, nn, width = shape
+    B = min(B, 16 if mm <= 2048 else 2)
+    _band_check(dev, dict(chip_smoke.band_cases(B, mm, nn, 500))[kind], width)
+
+
+# Boundaries of csrc/dp_band.cu's dispatch on width: the warp kernel with
+# C = 1, 2, 4, 8 up to widths 32, 64, 128, 256 (widths 1 and 17 inside, and
+# batches that leave the last block's warps part-filled), the block kernel
+# with C = 4 up to 2048, C = 8 up to 8192, the state in shared memory up to
+# width 9664 and in global scratch above, C = 32 up to 32768 and C = 64
+# above; widths max_n + 1 (offsets all 0) and m > n items.
+DP_BAND_EDGES = [
+    (3, 20, 40, 1), (3, 20, 40, 41), (5, 33, 31, 32), (9, 60, 20, 9), (6, 24, 64, 17),
+    (4, 24, 64, 33), (4, 24, 64, 64), (4, 24, 64, 65), (3, 30, 200, 128),
+    (3, 30, 200, 129), (3, 30, 300, 256), (3, 30, 300, 257), (2, 20, 3000, 2048),
+    (2, 20, 3000, 2049), (2, 9, 9000, 8192), (2, 9, 9700, 9664), (2, 9, 9700, 9665),
+    (1, 6, 33000, 32768), (1, 6, 33000, 32769), (1, 4, 40000, 40001),
+]
+
+
+@pytest.mark.parametrize('shape', DP_BAND_EDGES, ids=str)
+def test_dp_band_geometry_edges(dev, shape):
+    B, mm, nn, width = shape
+    q, r, m, n = (t.cpu().numpy() for t in _ragged(torch.device('cpu'), B, mm, nn,
+                                                    1000 + mm + width))
+    _band_check(dev, (q, r, m, n), width)
+
+
+def test_dp_band_band_exit(dev):
+    """Ten query bases spread over 250 reference bases in a 17-column band,
+    whose rows' windows do not overlap: the tape the walker leaves the band
+    on (test_torch_ladder.py's band exit)."""
+    rng = np.random.default_rng(44)
+    r = rng.integers(0, 4, 250).astype(np.int8)
+    q = r[np.sort(rng.choice(250, 10, replace=False))]
+    qp = np.full((4, 16), 4, np.int8)
+    rp = np.full((4, 256), 4, np.int8)
+    qp[:, :10], rp[:, :250] = q, r
+    m = np.array([10, 10, 16, 1], np.int32)
+    n = np.array([250, 256, 200, 1], np.int32)
+    _band_check(dev, (qp, rp, m, n), 17)
+
+
+def test_dp_band_repeated_launches_agree(dev):
+    """Twenty launches on one input: the double-buffered state and the
+    per-row barriers of the warp and block kernels."""
+    for B, mm, nn, width in ((9, 64, 64, 33), (3, 96, 600, 513)):
+        arrays = chip_smoke.related_inputs(B, mm, nn, 1100 + width)
+        _band_check(dev, arrays, width, reps=20)
+
+
+def test_dp_band_never_runs_plain_on_card(dev, monkeypatch):
+    """align_band on CUDA tensors launches the kernel and never calls its
+    plain version, which refuses CUDA tensors itself."""
+    q, r, m, n = _inputs(dev, 4, 32, 40, 1200)
+    plain = K.align_band_ref
+
+    def refuse(*a, **k):
+        raise AssertionError('plain version ran for a CUDA tensor')
+    monkeypatch.setattr(K, 'align_band_ref', refuse)
+    score, tb, offs = K.align_band(q, r, m, n, 17, SC)
+    torch.cuda.synchronize()
+    assert tb.device == dev and tb.shape == (4, 32, 17)
+    with pytest.raises(ValueError, match='row band'):
+        plain(q, r, m, n, 17, SC)
+
+
+def test_dp_band_failed_build_raises(dev, monkeypatch, tmp_path):
+    """No kernel library and no nvcc: align_band raises and counts no
+    launch (no fallback to the CPU)."""
+    from pav_tpu_torch import _build
+    q, r, m, n = _inputs(dev, 4, 32, 40, 1201)
+    monkeypatch.setattr(_build, '_LIB', None)
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path))
+    monkeypatch.setattr(_build, '_nvcc', lambda: (_ for _ in ()).throw(
+        RuntimeError('nvcc not found')))
+    before = dict(K.LAUNCHES)
+    with pytest.raises(RuntimeError, match='nvcc'):
+        K.align_band(q, r, m, n, 17, SC)
+    assert K.LAUNCHES == before
+
+
+def test_dp_band_rejects_empty_reference(dev):
+    """pav_dp_band refuses max_n = 0 (width 1 would read one byte before r)
+    with cudaErrorInvalidValue, writing nothing; align_band refuses it
+    before it builds anything."""
+    from pav_tpu_torch import _build
+    q, _, m, _ = _inputs(dev, 2, 8, 8, 1202)
+    r = torch.zeros((2, 0), dtype=torch.int8, device=dev)
+    n = torch.zeros(2, dtype=torch.int32, device=dev)
+    score = torch.full((2, 1), 7, dtype=torch.int32, device=dev)
+    tb = torch.full((2, 8, 1), 7, dtype=torch.uint8, device=dev)
+    offs = torch.full((2, 8), 7, dtype=torch.int32, device=dev)
+    code = _build.lib().pav_dp_band(
+        q.data_ptr(), r.data_ptr(), m.data_ptr(), n.data_ptr(), score.data_ptr(),
+        tb.data_ptr(), offs.data_ptr(), None, 2, 8, 0, 1, *SC,
+        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 1   # cudaErrorInvalidValue
+    assert (score == 7).all() and (tb == 7).all() and (offs == 7).all()
+    with pytest.raises(ValueError, match='max_n'):
+        K.align_band(q, r, m, n, 1, SC)

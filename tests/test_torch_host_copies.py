@@ -30,6 +30,7 @@ COPIES = [
     'align/cigar', 'align/table', 'align/trim', 'align/lift',
     'call/cigar_calls', 'call/homology', 'call/variant_id', 'call/inv_flag',
     'call/integrate', 'call/merge', 'call/redundancy', 'call/batching',
+    'asmstat', 'eval',
 ]
 # native.py: the top-level definitions that build the library (and the
 # module docstring) are the port's own.

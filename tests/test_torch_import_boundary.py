@@ -85,6 +85,37 @@ def test_cli_writes_vcf_without_jax_or_pav_tpu(tmp_path):
     assert {5001, 50000, 120001} <= pos, sorted(pos)
 
 
+_NO_JAX_ENTRY = _BLOCK + r'''
+import numpy as np
+from pav_tpu_torch import asmstat, entry
+from pav_tpu_torch.io.fasta import SeqStore
+fn, args = entry.entry(device='cpu')
+score, tb, offs = fn(*args)
+dry = entry.dryrun_multichip(2, device='cpu')
+stats = asmstat.asm_stats(SeqStore({'a': np.zeros(300, np.uint8), 'b': np.zeros(50, np.uint8)}))
+print(tuple(tb.shape), int(offs.max()), tuple(dry['tb'].shape), int(stats['N50']))
+'''
+
+
+def test_entry_points_and_eval_run_without_jax(tmp_path):
+    """``entry``, ``dryrun_multichip`` and ``asmstat``, and ``python -m
+    pav_tpu_torch.eval``, with jax and pav_tpu blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', _NO_JAX_ENTRY], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == '(4, 64, 65) 8 (4, 32, 33) 300'
+    vcf = tmp_path / 'a.vcf'
+    vcf.write_text('##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n'
+                   'c1\t101\ts1\tA\tG\t.\tPASS\tSVTYPE=SNV\n')
+    proc = subprocess.run(
+        [sys.executable, '-c', _BLOCK + "import runpy; sys.argv = ['eval'] + sys.argv[1:]; "
+         "runpy.run_module('pav_tpu_torch.eval', run_name='__main__', alter_sys=True)",
+         str(vcf), str(vcf)], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert 'SNV' in proc.stdout and 'RECALL' in proc.stdout
+
+
 def test_no_source_file_imports_jax():
     """No module of the port and not chip_smoke.py imports jax or pav_tpu."""
     offenders = []
@@ -148,11 +179,12 @@ def _card_calls():
     return {
         'full': lambda: dp_kernels.align_full(q, r, m, n, sc),
         'wave': lambda: dp_kernels.align_wave(q, r, m, n, doffs, 128, sc),
+        'band': lambda: dp_kernels.align_band(q, r, m, n, 9, sc),
         'traceback': lambda: dp_kernels.traceback(tb, offs, q, r, m, n, False),
     }
 
 
-@pytest.mark.parametrize('kernel', ['full', 'wave', 'traceback'])
+@pytest.mark.parametrize('kernel', ['full', 'wave', 'band', 'traceback'])
 def test_cuda_tensor_never_falls_back(monkeypatch, kernel):
     """With the inputs taken for CUDA tensors and no kernel library built,
     each wrapper raises; it never runs its plain version or counts a
@@ -168,11 +200,37 @@ def test_cuda_tensor_never_falls_back(monkeypatch, kernel):
 
     def plain(*a, **k):
         raise AssertionError('plain version ran for a CUDA tensor')
-    for name in ('align_full_ref', 'align_wave_ref', 'traceback_ref'):
+    for name in ('align_full_ref', 'align_wave_ref', 'align_band_ref', 'traceback_ref'):
         monkeypatch.setattr(dp_kernels, name, plain)
     before = dict(dp_kernels.LAUNCHES)
     with pytest.raises(RuntimeError, match='nvcc'):
         _card_calls()[kernel]()
+    assert dp_kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize('on_card', [False, True], ids=['cpu', 'cuda'])
+def test_band_rejects_empty_reference(monkeypatch, on_card):
+    """A row band needs max_n >= 1 (width 1 of an empty r would read before
+    its start): align_band and align_band_ref raise on the CPU, and on a
+    tensor taken for CUDA align_band raises before it builds or counts."""
+    q = torch.zeros((2, 8), dtype=torch.int8)
+    r = torch.zeros((2, 0), dtype=torch.int8)
+    m = torch.full((2,), 8, dtype=torch.int32)
+    n = torch.zeros(2, dtype=torch.int32)
+    sc = (1, -5, 5, 56, 4, 1)
+    if on_card:
+        monkeypatch.setattr(dp_kernels, '_check_seqs',
+                            lambda q, r, m, n: torch.device('cuda', 0))
+        monkeypatch.setattr(_build, '_LIB', None)
+        monkeypatch.setattr(_build, '_nvcc', lambda: (_ for _ in ()).throw(
+            AssertionError('built a kernel for an empty reference')))
+    calls = [lambda: dp_kernels.align_band(q, r, m, n, 1, sc)]
+    if not on_card:
+        calls.append(lambda: dp_kernels.align_band_ref(q, r, m, n, 1, sc))
+    before = dict(dp_kernels.LAUNCHES)
+    for call in calls:
+        with pytest.raises(ValueError, match='max_n'):
+            call()
     assert dp_kernels.LAUNCHES == before
 
 

@@ -256,7 +256,7 @@ def test_aligner_cpu_ladder_matches_reference(genome):
     banded = [k for k in affine_dp.STATS['classes'] if k[2] < k[1] + 1]
     if genome == 'repeat_rich':
         assert banded, 'no row-banded class ran'
-    assert dp_kernels.LAUNCHES == {'full': 0, 'wave': 0, 'traceback': 0}
+    assert dp_kernels.LAUNCHES == {'full': 0, 'wave': 0, 'band': 0, 'traceback': 0}
 
 
 # ---------------------------------------------------------------- the CLI

@@ -205,3 +205,14 @@ def test_dp_work_splits_across_shards(tmp_path):
     cells = st['shard_cells']
     assert len(cells) == 8 and min(cells) > 0
     assert max(cells) / min(cells) <= 1.5, f'unbalanced mesh work: {cells}'
+
+
+def test_pipeline_takes_one_mesh_setting():
+    """Pipeline's mesh is named by mesh= (a device may repeat) or counted by
+    config mesh_devices, never both: giving both raises."""
+    store = SeqStore({'c1': np.zeros(100, dtype=np.uint8)})
+    assert Pipeline(store, device='cpu', mesh=['cpu', 'cpu']).mesh == [CPU, CPU]
+    assert Pipeline(store, {'mesh_devices': 2}, device='cpu').mesh == [CPU, CPU]
+    assert Pipeline(store, device='cpu').mesh is None
+    with pytest.raises(ValueError, match='not both'):
+        Pipeline(store, {'mesh_devices': 2}, device='cpu', mesh=['cpu', 'cpu'])

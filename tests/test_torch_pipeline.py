@@ -165,7 +165,7 @@ def test_port_runs_its_dp_paths(runs):
     (on the CPU: their plain versions, which count no kernel launch)."""
     from pav_tpu_torch.ops import affine_dp
     assert affine_dp.STATS['launches'] > 0
-    assert dp_kernels.LAUNCHES == {'full': 0, 'wave': 0, 'traceback': 0}
+    assert dp_kernels.LAUNCHES == {'full': 0, 'wave': 0, 'band': 0, 'traceback': 0}
 
 
 def test_cli_matches_reference(runs, reference_cpu_vcf, tmp_path):
