@@ -108,7 +108,10 @@ FULL_SHAPES = [(4096, 16, 16), (512, 256, 256), (64, 2048, 2048), (16, 16, 32768
                (16, 512, 8192), (8, 16, 8193),
                # width 129, a power-of-two class of the main path that
                # bench16 happens not to launch (dp_full_warp<32, 4>)
-               (256, 16, 128)]
+               (256, 16, 128),
+               # the 128 x 32769 class, the largest item of the wide path, at
+               # half its batch cap (align/aligner/core.py _shape_batch)
+               (64, 128, 32768)]
 TRACED_FULL = 6   # the first FULL_SHAPES whose tapes also go through the walker
 WAVE_SHAPES = [(8, 8192, 8192, 513), (4, 8192, 8192, 2049)]
 # Row-band classes (B, max_m, max_n, width): entry(), the dry run's device
@@ -677,6 +680,14 @@ def wave_bound(B, mm, nn, ww):
                  B * (mm + nn + 8) + 4 * B * (mm + nn) + cells)
 
 
+def item_bound(cells, ops_cell):
+    """The one-item-per-SM bound in ms: an item's cells at one SM's INT32
+    issue rate (64 lanes x 1.98 GHz), the least time an item takes on one
+    SM; a bound for a batch of fewer items than the card has SMs, where each
+    item keeps to one SM."""
+    return 1e3 * cells * ops_cell / (64 * 1.98e9)
+
+
 def band_bound(B, mm, nn, width):
     """dp_band at (B, max_m, max_n, width): every window cell is computed
     and is an output byte; q, r and the lengths read, offsets and the last
@@ -789,10 +800,14 @@ def phase_kernels(dev, kt):
         call_ms = median_ms(lambda: K.align_full(q, r, m, n, SCORING), reps)
         ms, how = kt['dp_full'][i][3], kt['dp_full'][i][5]
         bms, by = full_bound(B, mm, nn)
+        extra = ''
+        if B < 132:
+            ibm = item_bound(mm * (nn + 1), OPS_FULL_CELL)
+            extra = f'; one-item-per-SM bound {ibm:.4f} ms ({100 * ibm / ms:.1f}%)'
         log(f'kernel dp_full B={B} {mm}x{nn + 1}: bit-identical, {ms:.4f} ms device ({how}) '
             f'({call_ms:.4f} ms per call, CUDA events around the wrapper; plain '
             f'{pms:.2f} ms, one run); bound {bms:.4f} ms ({by}), '
-            f'{100 * bms / ms:.1f}% of bound')
+            f'{100 * bms / ms:.1f}% of bound{extra}')
         if i == 0:
             stats['dp_full'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
         stats['dp_full']['err'] = max(stats['dp_full']['err'], err)
@@ -866,10 +881,14 @@ def phase_band(dev, stats, kt):
                                           max_abs_err(got[1].cpu(), want[1]))
         ms, how = kt['dp_band'][i][4], kt['dp_band'][i][6]
         bms, by = band_bound(B, mm, nn, width)
+        extra = ''
+        if B < 132:
+            ibm = item_bound(mm * width, OPS_BAND_CELL)
+            extra = f'; one-item-per-SM bound {ibm:.4f} ms ({100 * ibm / ms:.1f}%)'
         log(f'kernel dp_band B={B} {mm}x{nn} width {width}: bit-identical (score, tape, '
             f'offsets; random and related), {ms:.4f} ms device ({how}); plain '
             f'{plain[0]:.1f} / {plain[1]:.1f} ms on the CPU (one run each); bound '
-            f'{bms:.5f} ms ({by}), {100 * bms / ms:.1f}% of bound')
+            f'{bms:.5f} ms ({by}), {100 * bms / ms:.1f}% of bound{extra}')
         if i == 0:
             stats['dp_band'].update(ms=ms, ms_by=how, plain_ms=plain[0], bound_ms=bms,
                                     bound_by=by)

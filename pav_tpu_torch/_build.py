@@ -33,12 +33,10 @@ _F = ctypes.c_float
 # C entry points: name -> (argtypes, restype); every pointer and the stream
 # pass as void*, every launcher returns cudaGetLastError().
 SIGNATURES = {
-    # q, r, m, n, tb, scratch, B, max_m, max_n, width,
+    # q, r, m, n, tb, B, max_m, max_n, width,
     # match, mismatch, o1, o2, e1, e2, stream
-    'pav_dp_full': ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    'pav_dp_full': ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _I, _P], _I),
-    # width -> ints of global scratch per item (0: state in shared memory)
-    'pav_dp_full_scratch_ints': ([_I], _I),
     # q, r, m, n, doffs, tb, B, max_m, max_n, ww,
     # match, mismatch, o1, o2, e1, e2, stream
     'pav_dp_wave': ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

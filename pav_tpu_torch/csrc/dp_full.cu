@@ -13,45 +13,63 @@
 // except the horizontal gap F, an exclusive prefix max over the row. About
 // 40 int32 operations per cell against one tape byte written per cell: the
 // kernel is bound by integer issue (64 INT32 lanes per SM), not by HBM.
-// One item is one block, so an item's rows run at the rate of one SM: at
-// width 2049 a row costs about 1.2 us, the integer pipe of the SM being the
-// limit, and a batch smaller than the card (the main path's 2048 x 2049
-// class comes at B = 8) leaves the other SMs idle. The first design lost rate
-// besides: one 32-thread block per small item (half the lanes idle at width
-// 17, half the SM's warp slots empty), the per-column state loaded and
-// stored in shared memory on every row, two block barriers per row even for
-// a single warp, and tape bytes assembled by read-modify-write.
+// An item whose columns fit one SM runs its rows at that SM's rate: at
+// width 2049 a row costs about 1.2 us, and a batch smaller than the card
+// (the main path's 2048 x 2049 class comes at B = 8) leaves SMs idle. The
+// wide classes (16..512 x 8193, 16..128 x 32769) have few rows and many
+// columns, and come at small batches (16 x 512 x 8193): one SM an item
+// would leave most of the card idle and, at width 32769, hold more state
+// than an SM's registers and shared memory.
 //
-// Design. Every lane owns C consecutive columns j = 1 + u*C + c (u = its
-// index in the item) and keeps their H, E1, E2 and Htilde in registers for
-// the whole row loop; column 0 is computed by every lane of the item's
-// first warp. A row is two passes over the lane's columns: pass 1 computes
-// E, the diagonal and Htilde and the lane's max of Htilde + j*e for both
-// gap pieces; an exclusive max-scan over lanes by __shfl_up_sync gives
-// every lane the running max of the columns to its left; pass 2 finishes F,
-// H and the byte. The left neighbours (H of the previous row, Htilde of
-// this row) come by one shuffle each. F "opened at the previous column" is
+// Design. Every lane owns C consecutive columns j = jbase + 1 + u*C + c (u =
+// its index in the block) and keeps their H, E1, E2 and Htilde in registers
+// for the whole row loop; column 0 is computed apart, by every lane of the
+// item's first warp, so 2^k columns split evenly. A row is two passes over
+// the lane's columns: pass 1 computes E, the diagonal and Htilde and the
+// lane's max of Htilde + j*e for both gap pieces; an exclusive max-scan
+// over lanes by __shfl_up_sync gives every lane the running max of the
+// columns to its left; pass 2 finishes F, H and the byte. The left
+// neighbours (H of the previous row, Htilde of this row) come by one
+// shuffle each. F "opened at the previous column" is
 // run == Htilde[j-1] + (j-1)*e, exact in int32, and column 0 is always
 // opened, as in the reference.
 //  * dp_full_warp<S, C> (widths up to 257): one item per S-lane group,
 //    32/S items per warp, 4 warps per block, no block barrier at all. At
 //    width 17, two items share a warp and every lane owns one column.
-//  * dp_full_block<C> (widths 258..4097; C = 4 up to 513, then 8): one item
-//    per block of W warps, one block barrier per row: before it, each warp
-//    publishes the max of its strip, its running max before its last column
-//    and its last Htilde (double-buffered by row parity); after it, lane x
-//    of each warp reads warp x's values and a shuffle reduction gives the
-//    maxima of the warps to its left. The boundary H that warp w needs at
-//    the next row (H[i][j0-1], on warp w-1) it computes itself from those
-//    values, so a row needs no second barrier.
-//  * widths above 4097 (the unbalanced 512 x 8192 and 16..128 x 32768
-//    classes, off the main path): the first design, its state in shared
-//    memory up to width 8193 and in global scratch above
-//    (dp_full_wide_kernel).
+//  * dp_full_block<C, kOneStrip> (widths 258..4097; C = 4 up to 513, then
+//    8): one item per block of W warps, one block barrier per row: before
+//    it, each warp publishes the max of its columns, its running max before
+//    its last column and its last Htilde (double-buffered by row parity);
+//    after it, lane x of each warp reads warp x's values and one
+//    redux.sync gives the maxima of the warps to its left. The boundary H
+//    that warp w needs at the next row (H[i][j0-1], on warp w-1) it computes
+//    itself from those values, so a row needs no second barrier.
+//  * widths above 4097: the same block over strips of 256*W columns. What
+//    strip k needs of the strips to its left at row i is four ints, the
+//    Edge: H[i][jl] and Htilde[i][jl] of the column left of its first, and
+//    the running maxima of Htilde + j*e up to it. dp_full_block<8,
+//    kClusterStrips> runs the S <= 8 strips of an item as one thread-block
+//    cluster, one block a strip (at least 2048 columns a strip; 4 x 2048 at
+//    width 8193, 8 x 4096 at 32769): the strips form a one-way pipeline,
+//    strip k running row i once strip k-1 has sent row i's Edge into a
+//    ring of 64 row slots in k's shared memory, by an asynchronous store
+//    into distributed shared memory that completes the slot's mbarrier
+//    (st.async; no fence on either side). Strip k returns slots by a
+//    release store of the rows it has taken, every 32 rows, which orders
+//    its loads of those slots before the left strip's next stores into
+//    them. Nothing waits
+//    on a cluster barrier per row, so an item's rows take
+//    (max_m + S - 1) strip-rows.
+//    dp_full_block<8, kSerialStrips> runs the strips (up to 4096 columns)
+//    one after another in one block, the Edges of every row kept in shared
+//    memory; it takes the widths above 32769, which a cluster of 8 strips
+//    cannot hold, up to the rows whose Edges fit (about 13000). Nothing goes
+//    to global scratch at any width.
 // Tape rows are staged in shared memory (R rows per chunk, placed so that
 // shared and global addresses agree mod 16) and written out as 16-byte
 // stores: by the warp for its items (dp_full_warp), and by the whole block
-// one chunk behind the row loop (dp_full_block, two chunk buffers).
+// one chunk behind the row loop (dp_full_block, two chunk buffers; a
+// strip's rows each a segment of the tape row).
 
 #include <climits>
 
@@ -300,290 +318,263 @@ dp_full_warp(const int8_t* __restrict__ q, const int8_t* __restrict__ r,
 
 // ---------------------------------------------------------------- block
 
-constexpr int kPub = 6;   // ints a warp publishes per row
+constexpr int kPub = 8;     // ints a warp publishes per row
+constexpr int kRing = 64;   // row slots of a strip's incoming edge ring (clusters)
+constexpr int kStripCols = 2048;   // smallest strip of the cluster design (8 warps)
 
-template <int C>
+// Where a block's columns get their left boundary: column 0 (one strip, the
+// whole row), an edge array filled by the block's previous strip (strips one
+// after another), or a ring filled by the left neighbour of a cluster.
+enum StripMode { kOneStrip, kSerialStrips, kClusterStrips };
+
+// What strip k hands to strip k+1 for row i: H[i][jl] and Htilde[i][jl] of
+// its last column jl, and the running maxima of Htilde[i][j] + j*e over the
+// columns j <= jl (column 0 and the strips to the left included).
+struct Edge {
+  int h, ht, r1, r2;
+};
+
+// Bytes of shared memory before the staged tape rows: the published warp
+// values [2][W][kPub], the edges, their mbarriers (clusters: one a ring
+// slot) and a flag (padded to 16 bytes).
+__host__ __device__ __forceinline__ int block_fixed_bytes(int W, int edges, int bars) {
+  return 2 * W * kPub * 4 + edges * 16 + bars * 8 + 16;
+}
+
+// Staged bytes of one tape row of a strip of SW columns (column 0 included
+// in the first): its bytes plus up to 15 of alignment offset, rounded to 16.
+__host__ __device__ __forceinline__ int strip_row_bytes(int width, int SW) {
+  return (min(width, SW + 1) + 15 + 15) & ~15;
+}
+
+// Bytes of one chunk buffer: R whole rows, contiguous as on the tape, for
+// one strip; R strip rows at strip_row_bytes apart otherwise.
+__host__ __device__ __forceinline__ int block_chunk_bytes(int R, int width, int SW, int S) {
+  return S == 1 ? chunk_stride(R, width) : R * strip_row_bytes(width, SW);
+}
+
+// One item's columns 1..width-1 in S strips of SW = 32*W*C columns, column
+// 0 in strip 0 (kOneStrip: S = 1, one block an item). Lane t of a strip
+// owns its columns j0 = jbase + 1 + t*C onwards, in registers across rows.
+// A row has one block barrier. Before it, each warp publishes the maxima of
+// its columns' Htilde + j*e, its running max before its last column and its
+// last Htilde; warp 0 also the strip's left boundary: column 0's Htilde, or
+// the left strip's edge. After it, each warp takes the maxima of the warps
+// to its left by one redux.sync and computes the H of the column left
+// of its first (on warp w-1) itself, so the next row needs no second
+// barrier. The barrier covers both dependences between warps of a row: F's
+// prefix max (this row) and the boundary H (next row). Between strips only
+// the edge passes, one row at a time: strip k runs row i once strip k-1 has
+// finished row i (kClusterStrips: the strips of one item are one cluster
+// and run as a pipeline, the edge written into the right neighbour's ring
+// through distributed shared memory; kSerialStrips: one block runs the
+// strips in turn, the edges of every row kept in shared memory).
+template <int C, int MODE>
 __global__ void __launch_bounds__(512)
 dp_full_block(const int8_t* __restrict__ q, const int8_t* __restrict__ r,
               const int* __restrict__ m, const int* __restrict__ n, uint8_t* __restrict__ tb,
-              int max_m, int max_n, int width, int R, Scoring s) {
+              int max_m, int max_n, int width, int R, int strips, int edges, Scoring s) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int S = MODE == kOneStrip ? 1 : strips;
   const int T = blockDim.x, W = T >> 5;
   const int t = threadIdx.x, w = t >> 5, l = t & 31;
-  const int b = blockIdx.x;
-  int* pub = reinterpret_cast<int*>(smem);              // [2][W][kPub]
-  uint8_t* stage = reinterpret_cast<uint8_t*>(pub + 2 * W * kPub);  // 2 chunk buffers
-  const int stride = chunk_stride(R, width);
+  const int SW = T * C;
+  constexpr int kBars = MODE == kClusterStrips ? kRing : 0;
+  int* pub = reinterpret_cast<int*>(smem);                    // [2][W][kPub]
+  Edge* edge = reinterpret_cast<Edge*>(pub + 2 * W * kPub);   // [edges]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(edge + edges);  // [kBars]
+  int* taken_by_right = reinterpret_cast<int*>(bar + kBars);  // rows the right strip has taken
+  uint8_t* stage = reinterpret_cast<uint8_t*>(taken_by_right + 4);   // 2 chunk buffers
 
+  const int b = MODE == kClusterStrips ? blockIdx.x / S : blockIdx.x;
   const int mi = m[b], ni = n[b];
   const int8_t* qb = q + static_cast<size_t>(b) * max_m;
   const int8_t* rb = r + static_cast<size_t>(b) * max_n;
   uint8_t* tbb = tb + static_cast<size_t>(b) * max_m * width;
-  const int j0 = 1 + t * C;
+  const int rs = strip_row_bytes(width, SW);
+  const int cb = block_chunk_bytes(R, width, SW, S);
 
-  int H[C], E1[C], E2[C], HT[C], bits[C], rq[C];
-  const unsigned colv = init_cols(H, E1, E2, j0, ni, width, s);
+  int k = MODE == kClusterStrips ? static_cast<int>(blockIdx.x % S) : 0;
+  const int kend = MODE == kSerialStrips ? S : k + 1;
+  if (MODE == kClusterStrips) {
+    if (t == 0) {
+      for (int x = 0; x < kRing; ++x) pav::mbar_init(&bar[x], 1);
+      *taken_by_right = 0;
+      pav::mbar_init_fence();
+    }
+    pav::cluster_sync();   // every block of the cluster runs and has set its barriers
+  }
+  for (; k < kend; ++k) {
+    const bool first = k == 0, last = k == S - 1;
+    const int jbase = k * SW;                  // the strip owns columns jbase+1 .. jbase+SW
+    const int jlo = first ? 0 : jbase + 1;     // its first tape column
+    const int len = min(width - 1, jbase + SW) - jlo + 1;
+    const int j0 = jbase + 1 + t * C;
+
+    int H[C], E1[C], E2[C], HT[C], bits[C], rq[C];
+    const unsigned colv = init_cols(H, E1, E2, j0, ni, width, s);
 #pragma unroll
-  for (int c = 0; c < C; ++c) rq[c] = ((colv >> c) & 1u) ? rb[j0 + c - 1] : 4;
-  int h0 = 0, e10 = NEG, e20 = NEG;   // column 0, on warp 0 only
-  // H[i-1][j0-1] for lane 0 of warp w > 0 (the last column of warp w-1).
-  const int jb = j0 - 1;
-  int hb = (jb <= ni) ? -pav::gap_cost(jb, s.o1, s.o2, s.e1, s.e2) : NEG;
+    for (int c = 0; c < C; ++c) rq[c] = ((colv >> c) & 1u) ? rb[j0 + c - 1] : 4;
+    int h0 = 0, e10 = NEG, e20 = NEG;   // column 0, on warp 0 of strip 0
+    // H[i-1][j0-1] for lane 0 of warp w > 0 (the last column of warp w-1)
+    // and of warp 0 in strips k > 0 (the left strip's last column).
+    const int jb = j0 - 1;
+    int hb = (jb <= ni) ? -pav::gap_cost(jb, s.o1, s.o2, s.e1, s.e2) : NEG;
+    int taken = 0;   // rows of edges the right strip has taken (cluster)
+    // The right strip's edge ring and its mbarriers (cluster).
+    uint32_t right_edge = 0, right_bar = 0;
+    if (MODE == kClusterStrips && !last && t == T - 1) {
+      right_edge = pav::cluster_addr(edge, k + 1);
+      right_bar = pav::cluster_addr(bar, k + 1);
+    }
 
-  int qnext = qb[0];
-  int r_in = 0, chunk = 0;   // row within the chunk, chunk index
-  uint8_t* gch = tbb;        // the chunk's first tape row
-  uint8_t* row = stage + mod16(gch);
-  for (int i = 1; i <= max_m; ++i) {
-    const int qi = qnext;
-    if (i < max_m) qnext = qb[i];
-    const int qx = qi < 4 ? qi : INT_MIN;
-    const bool row_ok = i <= mi;
+    int qnext = qb[0];
+    int r_in = 0, chunk = 0;                             // row within the chunk, chunk index
+    uint8_t* grow = tbb + jlo;                           // the row's first tape byte
+    uint8_t* gch = grow;                                 // the chunk's first row
+    uint8_t* row = stage + mod16(grow);                  // staged byte of column jlo
+    for (int i = 1; i <= max_m; ++i) {
+      const int qi = qnext;
+      if (i < max_m) qnext = qb[i];
+      const int qx = qi < 4 ? qi : INT_MIN;
+      const bool row_ok = i <= mi;
 
-    const int h0_prev = h0;
-    int ht0 = NEG, byte0 = 0;
-    if (w == 0) byte0 = col0_step(h0, e10, e20, row_ok, s, ht0);
-    int hl = __shfl_up_sync(kFull, H[C - 1], 1);
-    if (l == 0) hl = (w == 0) ? h0_prev : hb;
-    int m1, m2, x1, x2;
-    pass1(H, E1, E2, HT, bits, rq, qx, hl, j0, colv, row_ok, s, m1, m2, x1, x2);
-    int ex1, ex2, t1, t2;
-    group_scan2<32>(m1, m2, l, ex1, ex2, t1, t2);
-    int* P = pub + (i & 1) * W * kPub;
-    if (l == 31) {
-      P[w * kPub + 0] = t1;                 // max over the warp's columns
-      P[w * kPub + 1] = t2;
-      P[w * kPub + 2] = imax(ex1, x1);      // ... over all but its last column
-      P[w * kPub + 3] = imax(ex2, x2);
-      P[w * kPub + 4] = HT[C - 1];          // Htilde of its last column
-      P[w * kPub + 5] = ht0;                // Htilde[i][0] (read from warp 0)
+      const int h0_prev = h0;
+      int ht0 = NEG, byte0 = 0;
+      if (first && w == 0) byte0 = col0_step(h0, e10, e20, row_ok, s, ht0);
+      int hl = __shfl_up_sync(kFull, H[C - 1], 1);
+      if (l == 0) hl = (first && w == 0) ? h0_prev : hb;
+      int m1, m2, x1, x2;
+      pass1(H, E1, E2, HT, bits, rq, qx, hl, j0, colv, row_ok, s, m1, m2, x1, x2);
+      int ex1, ex2, t1, t2;
+      group_scan2<32>(m1, m2, l, ex1, ex2, t1, t2);
+      // The strip's left boundary at row i: column 0, or the left strip's edge.
+      int lm1 = ht0, lm2 = ht0, lht = ht0;
+      if (!first && w == 0) {
+        Edge e{0, 0, 0, 0};
+        if (MODE == kClusterStrips) {
+          if (l == 0) {
+            // The left strip's asynchronous store of row i completes the
+            // slot's mbarrier phase.
+            const int slot = (i - 1) & (kRing - 1);
+            pav::mbar_arrive_expect(&bar[slot], sizeof(Edge));
+            pav::mbar_wait(&bar[slot], ((i - 1) / kRing) & 1);
+            e = edge[slot];
+            // Every 32 rows, the slots taken so far are free again for the
+            // left strip (it waits only when 64 rows ahead). A release: the
+            // loads of those slots complete before the left strip, which
+            // acquires the count, may store into them again.
+            if ((i & 31) == 0) pav::st_release_cluster(pav::cluster_map(taken_by_right, k - 1), i);
+          }
+          e.h = __shfl_sync(kFull, e.h, 0);
+          e.ht = __shfl_sync(kFull, e.ht, 0);
+          e.r1 = __shfl_sync(kFull, e.r1, 0);
+          e.r2 = __shfl_sync(kFull, e.r2, 0);
+        } else {
+          e = edge[i - 1];   // read before this row's barrier, rewritten after it
+        }
+        lm1 = e.r1;
+        lm2 = e.r2;
+        lht = e.ht;
+        hb = e.h;   // H[i][jbase]: lane 0's left column at the next row
+      }
+      int* P = pub + (i & 1) * W * kPub;
+      if (l == 31) {
+        P[w * kPub + 0] = t1;                 // max over the warp's columns
+        P[w * kPub + 1] = t2;
+        P[w * kPub + 2] = imax(ex1, x1);      // ... over all but its last column
+        P[w * kPub + 3] = imax(ex2, x2);
+        P[w * kPub + 4] = HT[C - 1];          // Htilde of its last column
+        if (w == 0) {
+          P[5] = lm1;                         // the left boundary's maxima
+          P[6] = lm2;
+          P[7] = lht;                         // ... and its Htilde
+        }
+      }
+      __syncthreads();
+      lm1 = P[5];
+      lm2 = P[6];
+      lht = P[7];
+
+      // The previous chunk is complete: write it out behind the row loop.
+      if (r_in == 0 && i > 1) {
+        uint8_t* gprev = gch - static_cast<size_t>(R) * width;
+        const uint8_t* buf = stage + ((chunk - 1) & 1) * cb;
+        if (S == 1) {
+          copy_out(gprev, buf + mod16(gprev), R * width, t, T);
+        } else {
+          for (int rr = 0; rr < R; ++rr, gprev += width) {
+            copy_out(gprev, buf + rr * rs + mod16(gprev), len, t, T);
+          }
+        }
+      }
+
+      // Max over the warps left of w-1 (one redux.sync each), then of w.
+      const int v1 = __reduce_max_sync(kFull, (l < w - 1) ? P[l * kPub + 0] : NEG);
+      const int v2 = __reduce_max_sync(kFull, (l < w - 1) ? P[l * kPub + 1] : NEG);
+      const int base1 = imax(imax(v1, lm1), NEG), base2 = imax(imax(v2, lm2), NEG);
+      int rin1 = base1, rin2 = base2, htp = lht;
+      if (w > 0) {
+        const int* L = P + (w - 1) * kPub;
+        rin1 = imax(base1, L[0]);
+        rin2 = imax(base2, L[1]);
+        // H[i][j0-1] of the left warp's last column, for the next row.
+        const int f1 = imax(base1, L[2]) - s.o1 - jb * s.e1;
+        const int f2 = imax(base2, L[3]) - s.o2 - jb * s.e2;
+        hb = (row_ok && jb <= ni) ? imax(L[4], imax(f1, f2)) : NEG;
+        htp = L[4];
+      }
+      const int htl = __shfl_up_sync(kFull, HT[C - 1], 1);
+      if (l > 0) htp = htl;
+      const int run1 = imax(rin1, ex1), run2 = imax(rin2, ex2);
+      pass2(H, HT, bits, run1, run2, htp + jb * s.e1, htp + jb * s.e2, j0, colv, row_ok, s);
+
+      // The edge of row i, from the strip's last lane.
+      if (!last && t == T - 1) {
+        const Edge e{H[C - 1], HT[C - 1], imax(run1, m1), imax(run2, m2)};
+        if (MODE == kClusterStrips) {
+          if (i - taken > kRing) {
+            while (i - (taken = pav::ld_acquire_cluster(taken_by_right)) > kRing) {
+            }
+          }
+          const int slot = (i - 1) & (kRing - 1);
+          pav::st_async4(right_edge + slot * sizeof(Edge), e.h, e.ht, e.r1, e.r2,
+                         right_bar + slot * sizeof(uint64_t));
+        } else {
+          edge[i - 1] = e;
+        }
+      }
+
+      if (first && t == 0) row[0] = static_cast<uint8_t>(byte0);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (j0 + c < width) row[j0 - jlo + c] = static_cast<uint8_t>(bits[c]);
+      }
+      grow += width;
+      if (++r_in == R) {
+        r_in = 0;
+        ++chunk;
+        gch = grow;
+        row = stage + (chunk & 1) * cb + mod16(grow);
+      } else {
+        row = S == 1 ? row + width : stage + (chunk & 1) * cb + r_in * rs + mod16(grow);
+      }
     }
     __syncthreads();
-    if (w > 0) ht0 = P[5];
-
-    // The previous chunk is complete: write it out behind the row loop.
-    if (r_in == 0 && i > 1) {
-      uint8_t* gprev = gch - static_cast<size_t>(R) * width;
-      copy_out(gprev, stage + ((chunk - 1) & 1) * stride + mod16(gprev), R * width, t, T);
-    }
-
-    // Max over the warps left of w-1, then of w.
-    int v1 = (l < w - 1) ? P[l * kPub + 0] : NEG;
-    int v2 = (l < w - 1) ? P[l * kPub + 1] : NEG;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      v1 = imax(v1, __shfl_xor_sync(kFull, v1, d));
-      v2 = imax(v2, __shfl_xor_sync(kFull, v2, d));
-    }
-    const int base1 = imax(imax(v1, ht0), NEG), base2 = imax(imax(v2, ht0), NEG);
-    int rin1 = base1, rin2 = base2, htp = ht0;
-    if (w > 0) {
-      const int* L = P + (w - 1) * kPub;
-      rin1 = imax(base1, L[0]);
-      rin2 = imax(base2, L[1]);
-      // H[i][j0-1] of the left warp's last column, for the next row.
-      const int f1 = imax(base1, L[2]) - s.o1 - jb * s.e1;
-      const int f2 = imax(base2, L[3]) - s.o2 - jb * s.e2;
-      hb = (row_ok && jb <= ni) ? imax(L[4], imax(f1, f2)) : NEG;
-      htp = L[4];
-    }
-    const int htl = __shfl_up_sync(kFull, HT[C - 1], 1);
-    if (l > 0) htp = htl;
-    pass2(H, HT, bits, imax(rin1, ex1), imax(rin2, ex2), htp + jb * s.e1, htp + jb * s.e2,
-          j0, colv, row_ok, s);
-
-    if (t == 0) row[0] = static_cast<uint8_t>(byte0);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (j0 + c < width) row[j0 + c] = static_cast<uint8_t>(bits[c]);
-    }
-    if (++r_in == R) {
-      r_in = 0;
-      ++chunk;
-      gch += static_cast<size_t>(R) * width;
-      row = stage + (chunk & 1) * stride + mod16(gch);
+    const int lastc = (max_m - 1) / R, rows = max_m - lastc * R;
+    uint8_t* glast = tbb + static_cast<size_t>(lastc) * R * width + jlo;
+    const uint8_t* buf = stage + (lastc & 1) * cb;
+    if (S == 1) {
+      copy_out(glast, buf + mod16(glast), rows * width, t, T);
     } else {
-      row += width;
-    }
-  }
-  __syncthreads();
-  const int last = (max_m - 1) / R;
-  uint8_t* glast = tbb + static_cast<size_t>(last) * R * width;
-  copy_out(glast, stage + (last & 1) * stride + mod16(glast), (max_m - last * R) * width, t, T);
-}
-
-// ------------------------------------------------- widths above 8193
-
-// Exclusive max-scan across the block of two values, identity NEG.
-// blockDim.x is a multiple of 32; wt holds 2 ints per warp.
-__device__ __forceinline__ void block_excl_max2(int v1, int v2, int* wt,
-                                                int& x1, int& x2) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int i1 = v1, i2 = v2;
-#pragma unroll
-  for (int s = 1; s < 32; s <<= 1) {
-    const int a = __shfl_up_sync(kFull, i1, s);
-    const int c = __shfl_up_sync(kFull, i2, s);
-    if (lane >= s) {
-      i1 = imax(i1, a);
-      i2 = imax(i2, c);
-    }
-  }
-  int e1 = __shfl_up_sync(kFull, i1, 1);
-  int e2 = __shfl_up_sync(kFull, i2, 1);
-  if (lane == 0) {
-    e1 = NEG;
-    e2 = NEG;
-  }
-  if (lane == 31) {
-    wt[2 * warp] = i1;
-    wt[2 * warp + 1] = i2;
-  }
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) {
-    e1 = imax(e1, wt[2 * w]);
-    e2 = imax(e2, wt[2 * w + 1]);
-  }
-  x1 = e1;
-  x2 = e2;
-}
-
-constexpr int kHeader = 256;   // bytes of shared memory before the row buffers
-
-// The first design, kept for widths above 4097. One block per item; thread
-// t owns K columns j = t*K + k;
-// the per-column state lives in a buffer laid out [4][K][T] (coalesced over
-// threads), in shared memory while it fits (widths up to 8193) and in global
-// scratch above; a block scan per row; row bytes collected in shared memory
-// and stored coalesced.
-__global__ void dp_full_wide_kernel(const int8_t* __restrict__ q,
-                                    const int8_t* __restrict__ r,
-                                    const int* __restrict__ m,
-                                    const int* __restrict__ n,
-                                    uint8_t* __restrict__ tb,
-                                    int* __restrict__ gscratch,
-                                    int max_m, int max_n, int width, int K,
-                                    int match, int mismatch,
-                                    int o1, int o2, int e1, int e2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int T = blockDim.x, t = threadIdx.x, b = blockIdx.x;
-  const int lanes = T * K;
-  const int wpad = (width + 15) & ~15;
-  int* wt = reinterpret_cast<int*>(smem);
-  int* st;
-  uint8_t* rowbuf;
-  if (gscratch != nullptr) {
-    st = gscratch + static_cast<size_t>(b) * 4 * lanes;
-    rowbuf = smem + kHeader;
-  } else {
-    st = reinterpret_cast<int*>(smem + kHeader);
-    rowbuf = smem + kHeader + static_cast<size_t>(16) * lanes;
-  }
-  int* SH = st;               // H[i-1][j], then H[i][j]
-  int* SE1 = st + lanes;      // E1
-  int* SE2 = st + 2 * lanes;  // E2
-  int* SHT = st + 3 * lanes;  // Htilde[i][j]
-
-  const int mi = m[b], ni = n[b];
-  const int8_t* qb = q + static_cast<size_t>(b) * max_m;
-  const int8_t* rbase = r + static_cast<size_t>(b) * max_n;
-  uint8_t* tbb = tb + static_cast<size_t>(b) * max_m * width;
-  const int j0 = t * K;
-
-  // Row 0: H[0][j] = -gapcost(j), E = -inf.
-  for (int k = 0; k < K; ++k) {
-    const int j = j0 + k;
-    const int h = (j == 0) ? 0 : -pav::gap_cost(j, o1, o2, e1, e2);
-    SH[k * T + t] = (j <= ni) ? h : NEG;
-    SE1[k * T + t] = NEG;
-    SE2[k * T + t] = NEG;
-  }
-  __syncthreads();
-
-  for (int i = 1; i <= max_m; ++i) {
-    uint8_t* rb = rowbuf + (i & 1) * wpad;
-    const int qi = qb[i - 1];
-    const bool row_ok = i <= mi;
-
-    // Pass 1: vertical gaps, diagonal, Htilde; thread maxima of the augs.
-    int hleft = (t > 0) ? SH[(K - 1) * T + t - 1] : NEG;   // H[i-1][j0-1]
-    int m1 = NEG, m2 = NEG;
-    for (int k = 0; k < K; ++k) {
-      const int j = j0 + k;
-      const int idx = k * T + t;
-      const int hup = SH[idx];
-      const int e1o = hup - (o1 + e1), e1x = SE1[idx] - e1;
-      const int e1n = imax(e1o, e1x);
-      const int e2o = hup - (o2 + e2), e2x = SE2[idx] - e2;
-      const int e2n = imax(e2o, e2x);
-      const int eb = imax(e1n, e2n);
-      const int rj = (j >= 1 && j <= ni) ? static_cast<int>(rbase[j - 1]) : 4;
-      const int sub = (qi == rj && qi < 4 && rj < 4) ? match : mismatch;
-      const int diag = (j >= 1) ? hleft + sub : NEG;
-      const int ht = imax(diag, eb);
-      hleft = hup;
-      const bool valid = (j <= ni) && row_ok;
-      SE1[idx] = valid ? e1n : NEG;
-      SE2[idx] = valid ? e2n : NEG;
-      SHT[idx] = ht;
-      if (j < width) {
-        rb[j] = static_cast<uint8_t>((eb > diag) | ((e2n > e1n) << 2) |
-                                     ((e1x > e1o) << 4) | ((e2x > e2o) << 5));
+      for (int rr = 0; rr < rows; ++rr, glast += width) {
+        copy_out(glast, buf + rr * rs + mod16(glast), len, t, T);
       }
-      m1 = imax(m1, ht + j * e1);
-      m2 = imax(m2, ht + j * e2);
     }
-
-    // Exclusive prefix max of Htilde + j*e over the columns left of j0.
-    int run1, run2;
-    block_excl_max2(m1, m2, wt, run1, run2);
-
-    // Pass 2: horizontal gaps, H, the rest of the byte.
-    int pa1 = NEG, pa2 = NEG;   // Htilde[i][j-1] + (j-1)*e
-    if (t > 0) {
-      const int htp = SHT[(K - 1) * T + t - 1];
-      pa1 = htp + (j0 - 1) * e1;
-      pa2 = htp + (j0 - 1) * e2;
-    }
-    for (int k = 0; k < K; ++k) {
-      const int j = j0 + k;
-      const int idx = k * T + t;
-      const int ht = SHT[idx];
-      const int a1 = ht + j * e1, a2 = ht + j * e2;
-      const int f1 = run1 - o1 - j * e1;
-      const int f2 = run2 - o2 - j * e2;
-      const int op1 = (j == 0) || (run1 == pa1);
-      const int op2 = (j == 0) || (run2 == pa2);
-      const int fb = imax(f1, f2);
-      const int hn = imax(ht, fb);
-      const bool valid = (j <= ni) && row_ok;
-      SH[idx] = valid ? hn : NEG;
-      if (j < width) {
-        rb[j] |= static_cast<uint8_t>(((fb > ht) << 1) | ((f2 > f1) << 3) |
-                                      (op1 << 6) | (op2 << 7));
-      }
-      run1 = imax(run1, a1);
-      run2 = imax(run2, a2);
-      pa1 = a1;
-      pa2 = a2;
-    }
-    __syncthreads();
-    uint8_t* out = tbb + static_cast<size_t>(i - 1) * width;
-    for (int x = t; x < width; x += T) out[x] = rb[x];
+    if (MODE == kSerialStrips) __syncthreads();   // the next strip reuses the buffers
   }
-}
-
-void wide_geometry(int width, int& T, int& K) {
-  K = (width + 1023) / 1024;
-  const int per = (width + K - 1) / K;
-  T = ((per + 31) / 32) * 32;
-}
-
-size_t wide_smem_in_shared(int width) {
-  int T, K;
-  wide_geometry(width, T, K);
-  const size_t wpad = (width + 15) & ~15;
-  return kHeader + static_cast<size_t>(16) * T * K + 2 * wpad;
+  // No block leaves while a neighbour may still write its shared memory.
+  if (MODE == kClusterStrips) pav::cluster_sync();
 }
 
 // ---------------------------------------------------------------- launch
@@ -605,40 +596,78 @@ cudaError_t launch_warp(const int8_t* q, const int8_t* r, const int* m, const in
   return cudaGetLastError();
 }
 
-template <int C>
+// dp_full_block with W warps a strip and S strips an item; R rows a chunk,
+// the largest that fits beside the fixed part (at most 16).
+template <int C, int MODE>
 cudaError_t launch_block(const int8_t* q, const int8_t* r, const int* m, const int* n,
-                         uint8_t* tb, int B, int max_m, int max_n, int width,
+                         uint8_t* tb, int B, int max_m, int max_n, int width, int W, int S,
                          const Scoring& s, cudaStream_t stream) {
-  const int cols = width - 1;
-  const int W = (cols + 32 * C - 1) / (32 * C);
-  const int T = 32 * W;
-  const size_t fixed = static_cast<size_t>(2 * W * kPub) * sizeof(int);
+  const int SW = 32 * W * C;
+  const int edges = MODE == kClusterStrips ? kRing : (MODE == kSerialStrips ? max_m : 0);
+  const size_t fixed = block_fixed_bytes(W, edges, MODE == kClusterStrips ? kRing : 0);
   int R = min(16, max_m);
-  while (R > 1 && fixed + 2 * static_cast<size_t>(chunk_stride(R, width)) > kSmemBudget) R >>= 1;
-  const size_t smem = fixed + 2 * static_cast<size_t>(chunk_stride(R, width));
-  cudaError_t err = pav::set_smem(dp_full_block<C>, smem);
+  while (R > 1 && fixed + 2 * static_cast<size_t>(block_chunk_bytes(R, width, SW, S)) > kSmemBudget) {
+    R >>= 1;
+  }
+  const size_t smem = fixed + 2 * static_cast<size_t>(block_chunk_bytes(R, width, SW, S));
+  // Strips in turn keep an edge a row: too many rows do not fit.
+  if (smem > static_cast<size_t>(pav::kMaxSmem)) return cudaErrorInvalidValue;
+  cudaError_t err = pav::set_smem(dp_full_block<C, MODE>, smem);
   if (err != cudaSuccess) return err;
-  dp_full_block<C><<<B, T, smem, stream>>>(q, r, m, n, tb, max_m, max_n, width, R, s);
+  if (MODE != kClusterStrips) {
+    dp_full_block<C, MODE><<<B, 32 * W, smem, stream>>>(q, r, m, n, tb, max_m, max_n, width, R,
+                                                       S, edges, s);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * S);
+  cfg.blockDim = dim3(32 * W);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dp_full_block<C, MODE>, q, r, m, n, tb, max_m, max_n, width, R,
+                           S, edges, s);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Columns above kBlockCols: strips of 256*W columns. A cluster takes up to
+// 8 strips (the portable cluster size) of at least kStripCols columns; one
+// block in turn takes strips of up to 4096 (16 warps, the most at up to 128
+// registers a thread).
+cudaError_t launch_wide(const int8_t* q, const int8_t* r, const int* m, const int* n,
+                        uint8_t* tb, int B, int max_m, int max_n, int width, const Scoring& s,
+                        cudaStream_t stream) {
+  constexpr int C = 8, kCols = 32 * C;
+  const int cols = width - 1;
+  const bool cluster = cols <= 8 * kBlockCols;
+  int S = cluster ? min(8, (cols + kStripCols - 1) / kStripCols)
+                  : (cols + kBlockCols - 1) / kBlockCols;
+  const int W = (cols + S * kCols - 1) / (S * kCols);
+  S = (cols + W * kCols - 1) / (W * kCols);
+  if (cluster) {
+    return launch_block<C, kClusterStrips>(q, r, m, n, tb, B, max_m, max_n, width, W, S, s,
+                                           stream);
+  }
+  return launch_block<C, kSerialStrips>(q, r, m, n, tb, B, max_m, max_n, width, W, S, s,
+                                        stream);
 }
 
 }  // namespace
 
-// Ints of global scratch per item (0 up to width 8193, where the state
-// stays in registers or shared memory).
-extern "C" int pav_dp_full_scratch_ints(int width) {
-  if (width - 1 <= kBlockCols || wide_smem_in_shared(width) <= pav::kMaxSmem) return 0;
-  int T, K;
-  wide_geometry(width, T, K);
-  return 4 * T * K;
-}
-
-extern "C" int pav_dp_full(const void* q_, const void* r_, const void* m_,
-                           const void* n_, void* tb_, void* scratch, int B,
-                           int max_m, int max_n, int width, int match,
-                           int mismatch, int o1, int o2, int e1, int e2,
-                           void* stream_) {
+extern "C" int pav_dp_full(const void* q_, const void* r_, const void* m_, const void* n_,
+                           void* tb_, int B, int max_m, int max_n, int width, int match,
+                           int mismatch, int o1, int o2, int e1, int e2, void* stream_) {
   if (B == 0) return 0;
+  if (width < 1 || width != max_n + 1 || max_m < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto* q = static_cast<const int8_t*>(q_);
   const auto* r = static_cast<const int8_t*>(r_);
   const auto* m = static_cast<const int*>(m_);
@@ -652,20 +681,13 @@ extern "C" int pav_dp_full(const void* q_, const void* r_, const void* m_,
   if (cols <= 64) return launch_warp<32, 2>(q, r, m, n, tb, B, max_m, max_n, width, s, stream);
   if (cols <= 128) return launch_warp<32, 4>(q, r, m, n, tb, B, max_m, max_n, width, s, stream);
   if (cols <= 256) return launch_warp<32, 8>(q, r, m, n, tb, B, max_m, max_n, width, s, stream);
-  if (cols <= 512) return launch_block<4>(q, r, m, n, tb, B, max_m, max_n, width, s, stream);
-  if (cols <= kBlockCols) {
-    return launch_block<8>(q, r, m, n, tb, B, max_m, max_n, width, s, stream);
+  if (cols <= 512) {
+    return launch_block<4, kOneStrip>(q, r, m, n, tb, B, max_m, max_n, width,
+                                      (cols + 127) / 128, 1, s, stream);
   }
-  const bool shared = pav_dp_full_scratch_ints(width) == 0;
-  if (!shared && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int T, K;
-  wide_geometry(width, T, K);
-  const size_t wpad = (width + 15) & ~15;
-  const size_t smem = shared ? wide_smem_in_shared(width) : kHeader + 2 * wpad;
-  cudaError_t err = pav::set_smem(dp_full_wide_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dp_full_wide_kernel<<<B, T, smem, stream>>>(
-      q, r, m, n, tb, shared ? nullptr : static_cast<int*>(scratch), max_m, max_n, width, K,
-      match, mismatch, o1, o2, e1, e2);
-  return static_cast<int>(cudaGetLastError());
+  if (cols <= kBlockCols) {
+    return launch_block<8, kOneStrip>(q, r, m, n, tb, B, max_m, max_n, width,
+                                      (cols + 255) / 256, 1, s, stream);
+  }
+  return launch_wide(q, r, m, n, tb, B, max_m, max_n, width, s, stream);
 }

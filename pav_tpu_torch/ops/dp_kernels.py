@@ -107,13 +107,9 @@ def align_full(q, r, m, n, sc):
     width = max_n + 1
     lib = _build.lib()
     tb = torch.empty((B, max_m, width), dtype=torch.uint8, device=dev)
-    ints = lib.pav_dp_full_scratch_ints(width)
-    scratch = (torch.empty(B * ints, dtype=torch.int32, device=dev)
-               if ints else None)
     with torch.cuda.device(dev):
         code = lib.pav_dp_full(
-            q.data_ptr(), r.data_ptr(), m.data_ptr(), n.data_ptr(),
-            tb.data_ptr(), scratch.data_ptr() if ints else None,
+            q.data_ptr(), r.data_ptr(), m.data_ptr(), n.data_ptr(), tb.data_ptr(),
             B, max_m, max_n, width, *sc,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, 'pav_dp_full')

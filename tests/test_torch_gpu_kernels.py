@@ -68,10 +68,10 @@ def _ragged(dev, B, max_m, max_n, seed, pad=True):
 # width = max_n + 1: dp_full_warp<16, 1> up to width 17, <32, 1> to 33,
 # <32, 2> to 65, <32, 4> to 129, <32, 8> to 257 (the last and first width
 # of each, and widths 9 and 41 inside); dp_full_block<4> from 258 (its last
-# warp owns one column) to 513, <8> from 514 to 4097; the shared-memory
-# wide kernel at 4098 and 8193, global scratch at 8194 and 32769; chunks of
-# 16 staged rows (max_m 17, 37, 70); B = 1, and batches that leave the last
-# block part-filled (8 items per block up to width 17, then 4).
+# warp owns one column) to 513, <8> from 514 to 4097; chunks of 16 staged
+# rows (max_m 17, 37, 70); B = 1, and batches that leave the last block
+# part-filled (8 items per block up to width 17, then 4). The strips from
+# width 4098 on are DP_FULL_WIDE.
 DP_FULL_EDGES = [
     (1, 16, 16), (13, 16, 16), (9, 8, 8), (5, 12, 9), (7, 20, 17), (6, 16, 32),
     (3, 37, 33), (5, 17, 64), (5, 16, 65), (7, 16, 128), (6, 16, 129),
@@ -93,6 +93,63 @@ def test_dp_full_geometry_edges(dev, shape):
     assert torch.equal(tb, tb_ref)
 
 
+# The strips of widths 4098 and up, in the design the dispatch picks by
+# width. Up to width 32769 a cluster of strips of 256*W columns, up to 8
+# strips of at least 2048 (width 4098: 3 strips, the last 1025 columns;
+# 8193: 4 x 2048; 8194: 5 strips of 1792, the last part-filled; 12289:
+# 6 x 2048; 32769: 8 x 4096): widths 8193 and 32769 at m = 1, 17 and 512
+# (the ring of 64 row slots wraps 8 times, its slots handed back every 32
+# rows), ragged m and n, and batches of 3, 5 and 7 items (not a multiple of
+# a cluster's strips, nor of one another). Above width 32769 one block runs
+# strips of up to 4096 in turn (40001: 10 x 4096), at m = 4, 17 and 300.
+DP_FULL_WIDE = [
+    (2, 17, 4097), (3, 9, 8192), (2, 9, 8193), (5, 6, 12288), (2, 1, 8192), (2, 512, 8192),
+    (7, 20, 8192), (1, 1, 32768), (2, 17, 32768), (1, 512, 32768), (3, 40, 32768),
+    (1, 4, 40000), (2, 17, 40000), (1, 300, 40000),
+]
+
+
+@pytest.mark.parametrize('shape', DP_FULL_WIDE, ids=str)
+def test_dp_full_wide_strips(dev, shape):
+    """csrc/dp_full.cu's strips against align_full_ref, bit for bit, with
+    ragged m and n."""
+    B, mm, nn = shape
+    q, r, m, n = _ragged(dev, B, mm, nn, 1300 + mm + nn)
+    tb, _ = K.align_full(q, r, m, n, SC)
+    torch.cuda.synchronize()
+    tb_ref, _ = K.align_full_ref(q, r, m, n, SC)
+    assert torch.equal(tb, tb_ref)
+
+
+def test_dp_full_takes_no_scratch(dev):
+    """The library has no scratch entry any more, and align_full at width
+    32769 allocates nothing beyond its outputs (the tape and the offsets)."""
+    from pav_tpu_torch import _build
+    assert not hasattr(_build.lib(), 'pav_dp_full_scratch_ints')
+    q, r, m, n = _inputs(dev, 16, 16, 32768, 1400)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    tb, offs = K.align_full(q, r, m, n, SC)
+    torch.cuda.synchronize()
+    outputs = tb.numel() + 4 * offs.numel()
+    assert torch.cuda.max_memory_allocated(dev) - before <= outputs + 2 * 512
+
+
+def test_dp_full_too_many_rows_for_strips_in_turn_raises(dev):
+    """Width 40001 runs strips in turn only, which keep an edge a row in
+    shared memory: 16000 rows do not fit, so pav_dp_full refuses them and
+    align_full raises, counting no launch."""
+    q = torch.full((1, 16000), 4, dtype=torch.int8, device=dev)
+    r = torch.full((1, 40000), 4, dtype=torch.int8, device=dev)
+    m = torch.tensor([16000], dtype=torch.int32, device=dev)
+    n = torch.tensor([40000], dtype=torch.int32, device=dev)
+    before = K.LAUNCHES['full']
+    with pytest.raises(RuntimeError, match='pav_dp_full'):
+        K.align_full(q, r, m, n, SC)
+    assert K.LAUNCHES['full'] == before
+
+
 @pytest.mark.parametrize('shape', [(5, 40, 128), (3, 40, 257), (8, 96, 2048)], ids=str)
 def test_dp_full_repeated_launches_agree(dev, shape):
     """Twenty launches on one input give the plain version's tape every
@@ -110,7 +167,7 @@ def test_dp_full_repeated_launches_agree(dev, shape):
 @pytest.mark.parametrize('shape', [(4, 40, 300), (3, 50, 2048), (2, 33, 4096)], ids=str)
 def test_dp_full_codes_past_lengths(dev, shape):
     """Any codes past m and n (not only the aligner's padding code 4), in
-    the warp, block and shared-memory kernels of dp_full."""
+    the warp and block kernels of dp_full."""
     B, mm, nn = shape
     q, r, m, n = _ragged(dev, B, mm, nn, 900 + nn, pad=False)
     m[1:] = torch.clamp(m[1:], max=mm // 3)
@@ -400,18 +457,28 @@ def test_dp_band_matches_plain(dev, shape, kind):
     _band_check(dev, dict(chip_smoke.band_cases(B, mm, nn, 500))[kind], width)
 
 
-# Boundaries of csrc/dp_band.cu's dispatch on width: the warp kernel with
-# C = 1, 2, 4, 8 up to widths 32, 64, 128, 256 (widths 1 and 17 inside, and
-# batches that leave the last block's warps part-filled), the block kernel
-# with C = 4 up to 2048, C = 8 up to 8192, the state in shared memory up to
-# width 9664 and in global scratch above, C = 32 up to 32768 and C = 64
-# above; widths max_n + 1 (offsets all 0) and m > n items.
+# Boundaries of csrc/dp_band.cu's dispatch on width (column 0 apart, then
+# cols = width - 1): G-lane groups with C = 1, 2 (G = 16) up to cols 16, 32,
+# then C = 2, 4 (G = 32) up to 64, 128, and C = 8 up to 256 from 528 items
+# on; fewer items up to 256 take a block with C = 1, then one block with
+# C = 2 up to 1024, C = 4 up to 2048, C = 8 up to 4096 and C = 16 up to
+# 8192, then C = 64 with the state in global scratch. Widths 1 and 9 inside; widths max_n + 1
+# (offsets all 0) and m > n items. Every ladder width 2^k + 1 for k =
+# 4..12; two items a warp with the last warp half-filled (B odd at widths
+# 17 and 33); shifts s > C (n much longer than m, up to n / m > 16), which
+# the shifted reads of the previous row's state take from other lanes and
+# warps.
 DP_BAND_EDGES = [
     (3, 20, 40, 1), (3, 20, 40, 41), (5, 33, 31, 32), (9, 60, 20, 9), (6, 24, 64, 17),
     (4, 24, 64, 33), (4, 24, 64, 64), (4, 24, 64, 65), (3, 30, 200, 128),
     (3, 30, 200, 129), (3, 30, 300, 256), (3, 30, 300, 257), (2, 20, 3000, 2048),
     (2, 20, 3000, 2049), (2, 9, 9000, 8192), (2, 9, 9700, 9664), (2, 9, 9700, 9665),
     (1, 6, 33000, 32768), (1, 6, 33000, 32769), (1, 4, 40000, 40001),
+    (5, 40, 40, 17), (7, 40, 40, 33), (3, 40, 80, 65), (3, 40, 200, 129), (3, 60, 300, 257),
+    (2, 60, 600, 513), (2, 40, 1100, 1025), (2, 30, 2100, 2049), (2, 20, 4200, 4097),
+    (3, 20, 2000, 65), (2, 30, 3000, 513), (2, 20, 8192, 4097), (2, 24, 8300, 8193),
+    (600, 12, 300, 257), (530, 8, 300, 200), (2, 20, 1100, 1025), (2, 20, 1100, 1026),
+    (2, 16, 2100, 2050),
 ]
 
 
@@ -421,6 +488,29 @@ def test_dp_band_geometry_edges(dev, shape):
     q, r, m, n = (t.cpu().numpy() for t in _ragged(torch.device('cpu'), B, mm, nn,
                                                     1000 + mm + width))
     _band_check(dev, (q, r, m, n), width)
+
+
+def test_dp_band_offsets_wrap(dev):
+    """One item of 50000 x 50000 at width 33: i*n passes 2^31 at row 42950,
+    so the offsets the kernel's prologue computes wrap as the reference's
+    int32 product does (they fall back to 0, a negative shift: the row's
+    shifted reads go left), and the reference bases read there jump back
+    to the start of the item."""
+    import time
+    rng = np.random.default_rng(1500)
+    r = rng.integers(0, 4, (1, 50000)).astype(np.int8)
+    q = r[:, rng.permutation(50000)].copy()
+    q[0, ::2] = r[0, ::2]
+    m = np.array([50000], np.int32)
+    n = np.array([50000], np.int32)
+    _band_check(dev, (q, r, m, n), 33)
+    card = [torch.from_numpy(a).to(dev) for a in (q, r, m, n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    K.align_band(*card, 33, SC)
+    torch.cuda.synchronize()
+    print(f'dp_band 1 x 50000 x 50000 w33: {1e3 * (time.perf_counter() - t0):.3f} ms '
+          f'(host clock around one call)')
 
 
 def test_dp_band_band_exit(dev):
@@ -439,8 +529,9 @@ def test_dp_band_band_exit(dev):
 
 
 def test_dp_band_repeated_launches_agree(dev):
-    """Twenty launches on one input: the double-buffered state and the
-    per-row barriers of the warp and block kernels."""
+    """Twenty launches on one input: the shared state, the staged windows of
+    offsets and query bases, the row flags and the barrier of the group and
+    block kernels."""
     for B, mm, nn, width in ((9, 64, 64, 33), (3, 96, 600, 513)):
         arrays = chip_smoke.related_inputs(B, mm, nn, 1100 + width)
         _band_check(dev, arrays, width, reps=20)
