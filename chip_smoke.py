@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times
     python3 chip_smoke.py --dp-full-times
+    python3 chip_smoke.py --chrom
 
 With ``--kernel-times`` it only times the DP kernels, the walker and the
 chain scan of the checkout it sits in (phase 3's inputs and device timing,
@@ -19,7 +20,8 @@ windowed design is timed beside the default at every tape where the
 checkout's library can force it (``pav_traceback_whole_max``). Phase 3 of
 a full run takes its device times from such a fresh process.
 ``--dp-full-times`` prints the dp_full part alone as {"root", "card",
-"shapes": [...]}. A copy of this file placed in another checkout (``git
+"shapes": [...]}. ``--chrom`` runs phases 1, 2 and 11 alone and prints no
+result line. A copy of this file placed in another checkout (``git
 archive`` of a parent commit) times that checkout's kernels: run the two in
 one call, in turns (A, B, B, A), to compare two versions on one card.
 
@@ -47,9 +49,12 @@ Phases (each prints its lines; any failure exits nonzero):
   4. main path: a 16 Mbp reference and a diploid sample (the generator of
      bench.py, seed 11) from FASTA through ``python -m pav_tpu_torch
      --device cuda`` to a VCF; the full-width and traceback kernels must run.
-     The wall and the launches are read from that run, without a profiler;
-     the same sample then runs again under a CUDA-activity trace (equal VCF
-     records) for the device time by kernel;
+     The wall, the launches, torch's peak device memory and nvidia-smi's
+     samples (memory, power, clocks, utilisation) are read from that run,
+     without a profiler; its VCF must meet tests/test_recall.py's recall
+     and precision floors against the planted truth. The same sample then
+     runs again under a CUDA-activity trace (equal VCF records) for the
+     device time by kernel;
   5. wavefront path: a 2 Mbp repeat-rich sample through the same CLI; the
      wavefront kernel must run. Wall and launches without a profiler; the
      sample again under a CUDA-activity trace (equal VCF records) for the
@@ -75,22 +80,32 @@ Phases (each prints its lines; any failure exits nonzero):
      (bit for bit), then ``entry.dryrun_multichip(2)`` over the mesh
      [cuda:0, cuda:0] against the same dry run on the CPU; the row band,
      full-width, walker and chain scan kernels must launch (dp_band's
-     launches in the kernels line are this phase's).
+     launches in the kernels line are this phase's);
+ 11. chromosome scale: bench.py's chromosome sample (100 Mbp reference,
+     seed 28, about 200 contig Mbp) through the same CLI in a child process
+     (``--cli-child``), twice: a warm-up, then the measured run (wall, stage
+     seconds, launches, DP class table, density paths, the child's peak RSS
+     from os.wait4, nvidia-smi samples beside it); equal VCF records in both,
+     the full-width and traceback kernels must run, and the VCF must meet
+     the recall floors against the planted truth.
 The line before last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and no network;
 imports no jax.
 """
 
+import contextlib
 import gzip
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 
+T0 = time.time()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCORING = (1, -5, 5, 56, 4, 1)
 _DECODE = np.frombuffer(b'ACGTN', dtype=np.uint8)
@@ -127,6 +142,19 @@ CHAIN_ARGS = (64, 19, 50000.0, 10000.0, 0.19)   # lookback, k, limits, gap scale
 CHAIN_ARGS_I2F = (64, 19, 2.0 ** 31, 2.0 ** 31, 0.19)
 CHAIN_PROBE_STEPS = 1 << 20     # steps of the dependency-chain probe
 DENSITY_LONG = (4, 1 << 18)     # phase 3 density: regions x n_pad
+# Phase 11: bench.py's chromosome-scale sample (PAV_BENCH_CHROM_MBP's
+# default, seed SEED + 17).
+CHROM_REF_LEN = 100_000_000
+CHROM_SEED = 28
+# tests/test_recall.py's floors against planted truth: (class, column, least).
+# INV also needs at least one INV in the truth.
+RECALL_FLOORS = (('SNV', 'RECALL', 0.99), ('SNV', 'PRECISION', 0.99),
+                 ('INS', 'RECALL', 0.97), ('DEL', 'RECALL', 0.97),
+                 ('INS', 'PRECISION', 0.95), ('DEL', 'PRECISION', 0.95),
+                 ('INV', 'RECALL', 1.0))
+# What nvidia-smi samples beside a measured run, every SMI_PERIOD_MS.
+SMI_QUERY = 'memory.used,power.draw,clocks.sm,clocks.mem,utilization.gpu'
+SMI_PERIOD_MS = 200
 TRACE_KERNEL = 'dp_full'       # phase 9: a dp_full kernel must appear in each trace
 # Kernel names hold these (the walker's kernels are traceback_*).
 NEEDLES = {'dp_full': 'dp_full', 'dp_wave': 'dp_wave', 'dp_band': 'dp_band',
@@ -177,6 +205,10 @@ KERNELS = {
 
 def log(msg):
     print(msg, flush=True)
+
+
+def stamp(label):
+    log(f'[{time.time() - T0:.0f} s] {label}')
 
 
 def fail(msg):
@@ -493,8 +525,9 @@ def write_fasta(path, records):
 
 
 def bench_genome(ref_len, seed, hap_seeds=None):
-    """The diploid sample of bench.py's build_genome (no cache); haplotype
-    seeds default to bench.py's (seed + 1, seed + 2)."""
+    """The diploid sample of bench.py's build_genome (no cache): (ref, h1,
+    h2, truth of h1, truth of h2), the truths as Mutator.truth lists;
+    haplotype seeds default to bench.py's (seed + 1, seed + 2)."""
     rng = np.random.default_rng(seed)
     ref = random_seq(ref_len, rng)
     s1, s2 = hap_seeds or (seed + 1, seed + 2)
@@ -525,9 +558,10 @@ def bench_genome(ref_len, seed, hap_seeds=None):
                     mut.inv(pos, int(rng2.integers(3000, 8000)))
                     inv_planted = True
             pos = max(pos + int(rng2.integers(800, 1800)), mut.cursor + 200)
-        return mut.finish()
+        return mut.finish(), mut.truth
 
-    return ref, make_hap(s1, False), make_hap(s2, True)
+    (h1, t1), (h2, t2) = make_hap(s1, False), make_hap(s2, True)
+    return ref, h1, h2, t1, t2
 
 
 def repeat_genome(ref_len, seed):
@@ -577,6 +611,53 @@ def e2e_genome():
     m2.snv(60000, rng=rng)
     m2.inv(100000, 4000)
     return ref, h1, m2.finish()
+
+
+# ------------------------------------------------------ planted truth
+
+def truth_to_df(truth, chrom='chr1'):
+    """Mutator truth records as a call table (tests/test_recall.py's)."""
+    import pandas as pd
+    rows = []
+    for t in truth:
+        if t['type'] == 'SNV':
+            rows.append((chrom, t['pos'], t['pos'] + 1, 'SNV', 1, t['ref'], t['alt']))
+        elif t['type'] == 'INS':
+            rows.append((chrom, t['pos'], t['pos'] + 1, 'INS', t['len'], 'N', 'N'))
+        elif t['type'] == 'DEL':
+            rows.append((chrom, t['pos'], t['pos'] + t['len'], 'DEL', t['len'], 'N', 'N'))
+        elif t['type'] == 'INV':
+            rows.append((chrom, t['pos'], t['pos'] + t['len'], 'INV', t['len'], 'N', 'N'))
+    df = pd.DataFrame(rows, columns=['#CHROM', 'POS', 'END', 'SVTYPE', 'SVLEN', 'REF', 'ALT'])
+    df['ID'] = [f'truth{i}' for i in range(df.shape[0])]
+    df['FILTER'] = 'PASS'
+    df['GT'] = '1'
+    return df
+
+
+def truth_report(vcf_path, truth):
+    """(report, misses): the concordance of a VCF with planted truth by
+    class (pav_tpu_torch.eval, the matching of tests/test_recall.py, the
+    truth deduplicated as there) and the RECALL_FLOORS it misses."""
+    from pav_tpu_torch import eval as ev
+    want = truth_to_df(truth).drop_duplicates(subset=['POS', 'SVTYPE', 'SVLEN', 'ALT'])
+    rep = ev.concordance(want, ev.read_vcf(vcf_path)).set_index('SVTYPE')
+    misses = [f'{cls} {col} {rep.loc[cls, col]:.4f} < {floor}'
+              for cls, col, floor in RECALL_FLOORS if not rep.loc[cls, col] >= floor]
+    if not rep.loc['INV', 'N_TRUTH'] >= 1:
+        misses.append('no INV in the truth')
+    return rep, misses
+
+
+def hold_to_truth(label, vcf_path, truth):
+    """Fail unless the VCF meets RECALL_FLOORS against planted truth; logs
+    the concordance table either way."""
+    t0 = time.time()
+    rep, misses = truth_report(vcf_path, truth)
+    log(f'{label} against planted truth ({time.time() - t0:.1f} s):\n{rep.to_string()}')
+    if misses:
+        fail(f'{label} misses the recall floors: {"; ".join(misses)}')
+    log(f'{label}: every recall floor met')
 
 
 # ------------------------------------------------------------------ timing
@@ -823,9 +904,13 @@ def phase_kernels(dev, kt):
             fail(f'dp_wave differs from align_wave_ref at B={B} {mm}x{nn} w{width}')
         ms, how = kt['dp_wave'][i][4], kt['dp_wave'][i][6]
         bms, by = wave_bound(B, mm, nn, ww)
+        extra = ''
+        if B < 132:
+            ibm = item_bound((mm + nn) * ww, OPS_WAVE_CELL)
+            extra = f'; one-item-per-SM bound {ibm:.4f} ms ({100 * ibm / ms:.1f}%)'
         log(f'kernel dp_wave B={B} {mm}x{nn} width {width} ({ww} lanes): '
             f'bit-identical, {ms:.4f} ms device ({how}; plain {pms:.1f} ms, one run); bound '
-            f'{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound')
+            f'{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound{extra}')
         if i == 0:
             stats['dp_wave'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
         tapes.append((f'wave B={B} {mm}x{nn} w{width}', tb, doffs, q, r, m, n, True))
@@ -843,10 +928,12 @@ def phase_kernels(dev, kt):
         ms, how = kt['traceback'][i][1], kt['traceback'][i][3]
         bms, by = trace_bound(out)
         longest = int(path_lengths(out).max())
+        ibm = item_bound(longest, OPS_TRACE_STEP)
         log(f'kernel traceback on {label}: bit-identical, {ms:.4f} ms device '
             f'({how}; plain {pms:.1f} ms, one run); bound {bms:.5f} ms ({by}), '
             f'{100 * bms / ms:.1f}% of bound; longest path {longest} steps, '
-            f'{1e6 * ms / max(longest, 1):.1f} ns per step; err on {errs} items')
+            f'{1e6 * ms / max(longest, 1):.1f} ns per step; one-item-per-SM bound (the '
+            f'longest path) {ibm:.5f} ms ({100 * ibm / ms:.2f}%); err on {errs} items')
         if i == 0:
             stats['traceback'].update(ms=ms, ms_by=how, plain_ms=pms, bound_ms=bms, bound_by=by)
     return stats
@@ -1037,6 +1124,131 @@ def run_sample(work, name, ref, haps, device, extra=()):
     return run_dir, wall
 
 
+def smi_memory_used():
+    """The card's memory.used in MiB now (nvidia-smi)."""
+    out = subprocess.run(['nvidia-smi', '--query-gpu=memory.used', '--format=csv,noheader,nounits',
+                          '-i', '0'], capture_output=True, text=True, timeout=60)
+    try:
+        return float(out.stdout.split()[0])
+    except (IndexError, ValueError):
+        fail(f'nvidia-smi gave no memory.used: {out.stdout!r} {out.stderr!r}')
+
+
+@contextlib.contextmanager
+def gpu_samples(path):
+    """nvidia-smi samples SMI_QUERY every SMI_PERIOD_MS into ``path`` while
+    the body runs, then stops; the yielded dict gets, per field, the
+    samples' max and median, and 'samples' (their count). Fails when fewer
+    than two samples or any unreadable value came back."""
+    out = {}
+    with open(path, 'w') as fh:
+        proc = subprocess.Popen(['nvidia-smi', f'--query-gpu={SMI_QUERY}',
+                                 '--format=csv,noheader,nounits', '-i', '0',
+                                 '-lms', str(SMI_PERIOD_MS)],
+                                stdout=fh, stderr=subprocess.DEVNULL)
+        try:
+            yield out
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    with open(path) as fh:
+        lines = [line for line in fh.read().splitlines() if line.strip()]
+    try:
+        rows = np.array([[float(x) for x in line.split(',')] for line in lines])
+    except ValueError:
+        fail(f'nvidia-smi gave an unreadable sample in {path}: {lines[:3]}')
+    if rows.ndim != 2 or rows.shape[0] < 2:
+        fail(f'nvidia-smi gave {len(lines)} samples in {path}')
+    out['samples'] = rows.shape[0]
+    for i, key in enumerate(SMI_QUERY.split(',')):
+        out[key] = (float(rows[:, i].max()), float(np.median(rows[:, i])))
+
+
+def smi_note(s, before_mib):
+    """One line of gpu_samples' results; ``before_mib``: memory.used before
+    the run."""
+    peak = s['memory.used'][0]
+    return (f'nvidia-smi every {SMI_PERIOD_MS} ms, {s["samples"]} samples: peak memory.used '
+            f'{peak:.0f} MiB ({peak - before_mib:.0f} MiB above the {before_mib:.0f} MiB '
+            f'before the run); power.draw max {s["power.draw"][0]:.2f} W, median '
+            f'{s["power.draw"][1]:.2f} W; clocks.sm max {s["clocks.sm"][0]:.0f} MHz, median '
+            f'{s["clocks.sm"][1]:.0f} MHz; clocks.mem max {s["clocks.mem"][0]:.0f} MHz, median '
+            f'{s["clocks.mem"][1]:.0f} MHz; utilization.gpu max {s["utilization.gpu"][0]:.0f}%, '
+            f'median {s["utilization.gpu"][1]:.0f}%')
+
+
+def cli_child(stats_path, argv):
+    """--cli-child: the port's CLI (``pav_tpu_torch.__main__.main``, what
+    ``python -m pav_tpu_torch`` runs) on ``argv`` in this process; then its
+    wall, kernel launches, DP class table, density paths and the aligner's
+    host seconds as JSON at ``stats_path``. The density paths are counted
+    by wrapping kde's host and batch functions: calls and largest grid."""
+    import threading
+    sys.path.insert(0, ROOT)
+    from pav_tpu_torch.__main__ import main as cli_main
+    from pav_tpu_torch.align.aligner import core
+    from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels, kde
+    density = {}
+    lock = threading.Lock()
+
+    def counted(fn, key_of):
+        def wrapper(*args):
+            key, grid = key_of(*args)
+            with lock:
+                calls, largest = density.get(key, (0, 0))
+                density[key] = (calls + 1, max(largest, grid))
+            return fn(*args)
+        return wrapper
+    kde._host_density_states = counted(kde._host_density_states,
+                                       lambda s, *_: ('host float64', len(s)))
+    kde._density_state_kernel_batch = counted(
+        kde._density_state_kernel_batch,
+        lambda s, sig, n_pad, *_: (f'torch.fft on {sig.device.type}', int(n_pad)))
+    t0 = time.time()
+    rc = cli_main(argv)
+    wall = time.time() - t0
+    with open(stats_path, 'w') as fh:
+        json.dump({'rc': rc, 'wall': wall,
+                   'launches': dict(dp_kernels.LAUNCHES,
+                                    chain_scan=chain_scan.LAUNCHES['chain_scan']),
+                   'classes': [[list(k), list(v)] for k, v in affine_dp.STATS['classes'].items()],
+                   'density': density, 'align_stats': dict(core.ALIGN_STATS)}, fh)
+    return rc
+
+
+def run_cli_child(d, argv, label, timeout):
+    """``chip_smoke.py --cli-child`` (the CLI on ``argv``) as a child
+    process; its output goes to ``d/label.log``. Returns (stats, process
+    wall, peak RSS in bytes of that child alone, from os.wait4)."""
+    stats_path = os.path.join(d, f'{label}_stats.json')
+    log_path = os.path.join(d, f'{label}.log')
+    with open(log_path, 'w') as fh:
+        t0 = time.time()
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), '--cli-child',
+                                 stats_path, *argv], stdout=fh, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=ROOT))
+        timer = threading.Timer(timeout, proc.kill)
+        timer.start()
+        try:
+            _, status, usage = os.wait4(proc.pid, 0)
+        finally:
+            timer.cancel()
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        wall = time.time() - t0
+    if proc.returncode != 0:
+        with open(log_path) as fh:
+            tail = fh.read()[-4000:]
+        fail(f'{label}: the CLI child exited {proc.returncode} after {wall:.0f} s:\n{tail}')
+    with open(stats_path) as fh:
+        stats = json.load(fh)
+    stats['classes'] = {tuple(k): tuple(v) for k, v in stats['classes']}
+    return stats, wall, usage.ru_maxrss * 1024
+
+
 def kernel_times(card, dev, dp_full_only=False):
     """--kernel-times (--dp-full-times: dp_full_only): device ms of this
     checkout's align_full at every FULL_SHAPES entry, align_wave at every
@@ -1132,11 +1344,15 @@ def chain_times(dev):
 
 def main():
     import argparse
+    if sys.argv[1:2] == ['--cli-child']:
+        return cli_child(sys.argv[2], sys.argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--kernel-times', action='store_true',
                     help="only time this checkout's DP kernels and walker at phase 3's shapes")
     ap.add_argument('--dp-full-times', action='store_true',
                     help="only time this checkout's full-width DP kernel at FULL_SHAPES")
+    ap.add_argument('--chrom', action='store_true',
+                    help='run phases 1, 2 and 11 only (the chromosome-scale sample)')
     args = ap.parse_args()
     if not os.path.isfile(os.path.join(ROOT, 'pav_tpu_torch', 'ops', 'dp_kernels.py')):
         fail(f'no pav_tpu_torch package beside {__file__}: run from a checkout of the repo')
@@ -1174,7 +1390,15 @@ def main():
         if 'registers' in line or 'spill' in line:
             log(f'  ptxas: {line.strip()}')
 
+    if args.chrom:
+        with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
+            stamp('phase 11')
+            phase_chrom(work, card, dev)
+        stamp('done')
+        return 0
+
     # 3. kernels against their plain versions; times from a fresh process
+    stamp('phase 3')
     kt = fresh_kernel_times()
     stats = phase_kernels(dev, kt)
     phase_chain_scan(dev, stats, kt)
@@ -1185,7 +1409,13 @@ def main():
         main_launches, genome = drive_main_path(work, card, dev)
         for key, count in drive_scale_out(work, card, dev, genome).items():
             main_launches[key] += count
-    main_launches['band'] = phase_entry(card, dev)['band']
+        del genome
+        stamp('phase 10')
+        main_launches['band'] = phase_entry(card, dev)['band']
+        stamp('phase 11')
+        for key, count in phase_chrom(work, card, dev).items():
+            main_launches[key] += count
+    stamp('done')
 
     if 'jax' in sys.modules:
         fail('jax was imported')
@@ -1233,53 +1463,69 @@ def trace_launch_shapes(path, needle):
     return out
 
 
-def dp_classes(label, classes, dev):
+def dp_classes(label, classes, dev, events=False):
     """A sample's DP classes (affine_dp.STATS['classes']): launches, items,
     padded cells and path lengths; each class's DP kernel timed alone at its
-    shape (device time; its work does not depend on the data) times its
-    resolved launches; and the run's bounds: dp_full and dp_wave over their
-    padded cells, the walker over the run's path steps."""
+    shape (its work does not depend on the data) times its resolved
+    launches: device time from a profiler trace, or with ``events`` CUDA
+    events around the wrapper (no profiler); and the run's bounds: dp_full
+    and dp_wave over their padded cells, the walker over the run's path
+    steps, and where a launch has fewer items than the card has SMs, the
+    one-item-per-SM bound (item_bound): a launch's padded item for the DP,
+    each class's longest path for the walker."""
     import torch
     from pav_tpu_torch.ops import affine_dp, dp_kernels as K
+
+    def timed(fn, reps, needle):
+        return median_ms(fn, reps) if events else device_ms(fn, reps, needle)[0]
     rows = []
     for (mm, nn, width, b_pad), (launches, _, items, cells, real, steps, longest) \
             in classes.items():
         q, r, m, n = (torch.from_numpy(a).to(dev) for a in dp_inputs(b_pad, mm, nn, 300))
         if width == nn + 1:
             kind, ww = 'full', width
-            ms, _ = device_ms(lambda: K.align_full(q, r, m, n, SCORING),
-                              5 if mm * nn >= 1 << 22 else 20, NEEDLES['dp_full'])
+            ms = timed(lambda: K.align_full(q, r, m, n, SCORING),
+                       5 if mm * nn >= 1 << 22 else 20, NEEDLES['dp_full'])
             bms = full_bound(b_pad, mm, nn)[0]
+            ibm = item_bound(mm * (nn + 1), OPS_FULL_CELL)
         else:
             kind, ww = 'wave', affine_dp._wave_width(width)
             doffs = affine_dp._wave_geometry(m, n, mm, nn, mm + nn, ww)
-            ms, _ = device_ms(lambda: K.align_wave(q, r, m, n, doffs, ww, SCORING), 3,
-                              NEEDLES['dp_wave'])
+            ms = timed(lambda: K.align_wave(q, r, m, n, doffs, ww, SCORING), 3,
+                       NEEDLES['dp_wave'])
             bms = wave_bound(b_pad, mm, nn, ww)[0]
+            ibm = item_bound((mm + nn) * ww, OPS_WAVE_CELL)
         rows.append((kind, b_pad, mm, nn, width, ww, launches, items, cells, real, steps,
-                     longest, ms, bms))
+                     longest, ms, bms, ibm if b_pad < 132 else None))
     rows.sort(key=lambda x: -x[6] * x[12])
     totals = {}
     for kind, b_pad, mm, nn, width, ww, launches, items, cells, real, steps, longest, ms, \
-            bms in rows:
+            bms, ibm in rows:
         totals[kind] = totals.get(kind, 0.0) + launches * ms
+        extra = '' if ibm is None else f'; one-item-per-SM bound {ibm:.4f} ms a launch'
         log(f'{label} class {kind} B={b_pad} {mm}x{width} ({ww} lanes): {launches} launches, '
             f'{items} items, {cells} padded cells ({real} real), path steps {steps} '
-            f'(longest {longest}); {ms:.4f} ms per launch, {launches * ms:.4f} ms in all')
+            f'(longest {longest}); {ms:.4f} ms per launch, {launches * ms:.4f} ms in all{extra}')
     for kind in ('full', 'wave'):
         mine = [x for x in rows if x[0] == kind]
         if not mine:
             continue
         bms = sum(x[6] * x[13] for x in mine)
         cells = sum(x[8] for x in mine)
+        few = [x for x in mine if x[14] is not None]
+        extra = '' if not few else (
+            f'; one-item-per-SM bound of its {sum(x[6] for x in few)} launches of fewer than '
+            f'132 items {sum(x[6] * x[14] for x in few):.4f} ms')
         log(f'{label} dp_{kind}: {totals[kind]:.4f} ms from the class table; bound '
-            f'{bms:.4f} ms over {cells} padded cells (operations)')
+            f'{bms:.4f} ms over {cells} padded cells (operations){extra}')
     steps = sum(x[10] for x in rows)
     items = sum(x[6] * x[1] for x in rows)
     out_bytes = sum(x[6] * x[1] * (K.trace_len(x[2], x[3]) // 4 + 5) for x in rows)
     bms, by = walk_bound(steps, items, out_bytes)
+    ibm = sum(item_bound(x[11], OPS_TRACE_STEP) for x in rows)
     log(f'{label} traceback bound: {steps} path steps (longest {max(x[11] for x in rows)}) in '
-        f'{sum(x[6] for x in rows)} launches, {out_bytes} output bytes: {bms:.4f} ms ({by})')
+        f'{sum(x[6] for x in rows)} launches, {out_bytes} output bytes: {bms:.4f} ms ({by}); '
+        f'one-item-per-SM bound {ibm:.4f} ms (each class\'s longest path, walked on one SM)')
 
 
 def traced_run(work, name, ref, haps, want, wall_note):
@@ -1321,19 +1567,27 @@ def drive_main_path(work, card, dev):
     """Phases 4-6; returns the kernel launches of phases 4 and 5 (each read
     from 0 just before its run to just after it), and phase 4's genome
     (ref, h1, h2)."""
+    import torch
+    from pav_tpu_torch.align.aligner import core
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
 
     # 4. main path, 16 Mbp diploid
+    stamp('phase 4')
     t0 = time.time()
-    ref, h1, h2 = bench_genome(BENCH_REF_LEN, 11)
+    ref, h1, h2, t1, t2 = bench_genome(BENCH_REF_LEN, 11)
     genome = (ref, h1, h2)
     log(f'genome: {len(ref) / 1e6:g} Mbp reference, haps {len(h1)} + {len(h2)} bp '
         f'({time.time() - t0:.1f} s)')
     haps = {'h1': ('tig_h1', h1), 'h2': ('tig_h2', h2)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = smi_memory_used()
     dp_kernels.launches_reset()
     chain_scan.launches_reset()
     affine_dp.stats_reset()
-    run_dir, wall = run_sample(work, 'bench16', ref, haps, DEVICE)
+    core.align_stats_reset()
+    with gpu_samples(os.path.join(work, 'bench16_smi.csv')) as smi:
+        run_dir, wall = run_sample(work, 'bench16', ref, haps, DEVICE)
     main_launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
     # A copy of the counters: the traced run below adds to the same lists.
     classes = {k: tuple(v) for k, v in affine_dp.STATS['classes'].items()}
@@ -1342,15 +1596,22 @@ def drive_main_path(work, card, dev):
     log(f'main path {len(ref) / 1e6:g} Mbp diploid: {len(recs)} VCF records, wall {wall:.2f} s '
         f'(no profiler), {mbp / wall:.3f} contig Mbp/s on {card}; launches {main_launches}')
     log('stage seconds: ' + json.dumps(stage_seconds(run_dir, 'bench16')))
+    log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
+        {k: round(v, 3) for k, v in core.ALIGN_STATS.items()}))
+    log(f'bench16 device memory: torch max_memory_allocated '
+        f'{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, max_memory_reserved '
+        f'{torch.cuda.max_memory_reserved() / 2**20:.0f} MiB; {smi_note(smi, before)}; on {card}')
     if not recs:
         fail('the 16 Mbp VCF has no records')
     if main_launches['full'] <= 0 or main_launches['traceback'] <= 0:
         fail(f'the main path did not launch the full/traceback kernels: {main_launches}')
+    hold_to_truth('bench16 VCF', os.path.join(run_dir, 'bench16.vcf.gz'), t1 + t2)
 
     # The same sample again under a CUDA-activity trace: device time by kernel.
     traced_run(work, 'bench16', ref, haps, recs, 'a second run')
 
     # 5. repeat-rich sample: the wavefront band kernel
+    stamp('phase 5')
     rref, rhap = repeat_genome(REPEAT_REF_LEN, 18)
     rhaps = {'h1': ('rtig1', rhap)}
     dp_kernels.launches_reset()
@@ -1375,6 +1636,7 @@ def drive_main_path(work, card, dev):
     # 6. cuda vs cpu on the e2e genome, the CPU on the CUDA path's classes
     # (ladder='accel', the plain kernel versions; the CLI's --device cpu
     # takes the CPU ladder, which tier-1 holds against pav_tpu).
+    stamp('phase 6')
     from pav_tpu_torch.io.fasta import SeqStore
     from pav_tpu_torch.pipeline import Pipeline
     ref, h1, h2 = e2e_genome()
@@ -1404,6 +1666,7 @@ def drive_scale_out(work, card, dev, genome):
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
 
     # 7. mesh: the DP of one haplotype split over [cuda:0, cuda:0]
+    stamp('phase 7')
     ref, h1, _ = genome
     ref_store = SeqStore({'chr1': ref})
     qry = SeqStore({'tig_h1': h1})
@@ -1434,6 +1697,7 @@ def drive_scale_out(work, card, dev, genome):
         f'unsharded, {wall_mesh:.2f} s sharded; launches {mesh_launches} on {card}')
 
     # 8. chain fallback: no native chain kernel, so the scan runs on the card
+    stamp('phase 8')
     from pav_tpu_torch import native
     orig = native.chain_dp
     native.chain_dp = lambda *a, **k: None
@@ -1457,6 +1721,7 @@ def drive_scale_out(work, card, dev, genome):
     torch.cuda.synchronize()
 
     # 9. cohort
+    stamp('phase 9')
     phase_cohort(work, card, genome)
     return launches
 
@@ -1517,6 +1782,82 @@ def phase_entry(card, dev):
         f'(CIGARs, DP, chains exact; density within float32, {undecided} undecided states; '
         f'pipeline calls equal), total {dry["total"]:.4f}; {wall:.2f} s for both card runs; '
         f'launches {launches} on {card}')
+    # The run's dp_band classes: entry()'s one launch, and the dry run's
+    # device step in one launch a mesh device (rows split evenly, max_n =
+    # max_m there).
+    B, mm, width = dry['tb'].shape
+    classes = [(args[0].shape[0], args[0].shape[1], args[1].shape[1], got[1].shape[2]),
+               (B // 2, mm, mm, width), (B // 2, mm, mm, width)]
+    if launches['band'] != len(classes):
+        fail(f'entry points: {launches["band"]} dp_band launches, expected {classes}')
+    bms = sum(band_bound(*c)[0] for c in classes)
+    ibm = sum(item_bound(c[1] * c[3], OPS_BAND_CELL) for c in classes)
+    log(f'entry points dp_band per-run bound: {bms:.6f} ms over {len(classes)} launches '
+        f'{classes} (operations); one-item-per-SM bound {ibm:.5f} ms')
+    return launches
+
+
+def phase_chrom(work, card, dev):
+    """11. bench.py's chromosome-scale sample (CHROM_REF_LEN, CHROM_SEED)
+    from FASTA through the port's CLI on the card, in a child process
+    (run_cli_child), twice: the first run warms up, the second is measured
+    without a profiler (wall, stage seconds, launches, DP class table,
+    density paths, the child's peak RSS, nvidia-smi samples beside it). Both
+    runs write equal VCF records; the measured run's VCF is held to planted
+    truth. Returns the measured run's launches."""
+    import torch
+    d = os.path.join(work, 'chrom')
+    os.makedirs(d)
+    t0 = time.time()
+    ref, h1, h2, t1, t2 = bench_genome(CHROM_REF_LEN, CHROM_SEED)
+    t_gen = time.time() - t0
+    t0 = time.time()
+    name = f'chrom{CHROM_REF_LEN // 1_000_000}'
+    write_fasta(os.path.join(d, 'ref.fa'), {'chr1': ref})
+    write_fasta(os.path.join(d, 'h1.fa'), {'tig_h1': h1})
+    write_fasta(os.path.join(d, 'h2.fa'), {'tig_h2': h2})
+    with open(os.path.join(d, 'asm.tsv'), 'w') as fh:
+        fh.write(f'NAME\tHAP_h1\tHAP_h2\n{name}\t{os.path.join(d, "h1.fa")}\t'
+                 f'{os.path.join(d, "h2.fa")}\n')
+    mbp = (len(h1) + len(h2)) / 1e6
+    log(f'{name}: {len(ref) / 1e6:g} Mbp reference (seed {CHROM_SEED}), haps {len(h1)} + '
+        f'{len(h2)} bp = {mbp:.3f} contig Mbp, {len(t1)} + {len(t2)} planted events; generated '
+        f'in {t_gen:.1f} s, FASTAs written in {time.time() - t0:.1f} s (outside the walls)')
+    del ref, h1, h2
+
+    def argv(run_dir):
+        return ['--ref', os.path.join(d, 'ref.fa'), '--assemblies', os.path.join(d, 'asm.tsv'),
+                '--run-dir', os.path.join(d, run_dir), '--device', DEVICE]
+    torch.cuda.empty_cache()
+    warm, warm_wall, warm_rss = run_cli_child(d, argv('run_warm'), f'{name}_warm', 900)
+    log(f'{name} warm-up run: CLI wall {warm["wall"]:.2f} s ({warm_wall:.2f} s with the '
+        f'process start), peak RSS {warm_rss / 2**30:.2f} GiB')
+    before = smi_memory_used()
+    with gpu_samples(os.path.join(d, 'smi.csv')) as smi:
+        st, proc_wall, rss = run_cli_child(d, argv('run'), name, 900)
+    vcf = os.path.join(d, 'run', f'{name}.vcf.gz')
+    recs = vcf_records(vcf)
+    if not recs:
+        fail(f'the {name} VCF has no records')
+    if recs != vcf_records(os.path.join(d, 'run_warm', f'{name}.vcf.gz')):
+        fail(f'the two {name} runs wrote other VCF records')
+    launches = st['launches']
+    log(f'{name} diploid: {len(recs)} VCF records, equal in both runs; wall {st["wall"]:.2f} s '
+        f'(the CLI\'s main, no profiler; {proc_wall:.2f} s with the process start), '
+        f'{mbp / st["wall"]:.3f} contig Mbp/s on {card}; launches {launches}')
+    if launches['full'] <= 0 or launches['traceback'] <= 0:
+        fail(f'{name} did not launch the full/traceback kernels: {launches}')
+    log('stage seconds: ' + json.dumps(stage_seconds(os.path.join(d, 'run'), name)))
+    log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
+        {k: round(v, 3) for k, v in st['align_stats'].items()}))
+    log(f'{name} density paths (calls, largest grid): {st["density"]}')
+    wide = sorted(k for k in st['classes'] if k[2] == k[1] + 1 and k[2] > 4097)
+    log(f'{name} dp_wave launches: {launches["wave"]}; dp_full classes wider than 4097: '
+        f'{[(k, st["classes"][k][0]) for k in wide] or "none"}')
+    log(f'{name} CLI child: peak RSS {rss / 2**30:.2f} GiB (os.wait4 ru_maxrss); '
+        f'{smi_note(smi, before)}; on {card}')
+    dp_classes(name, st['classes'], dev, events=True)
+    hold_to_truth(f'{name} VCF', vcf, t1 + t2)
     return launches
 
 
@@ -1553,7 +1894,7 @@ def phase_cohort(work, card, genome):
     d = os.path.join(work, 'cohort')
     os.makedirs(d)
     ref, a1, a2 = genome
-    _, b1, b2 = bench_genome(len(ref), 11, hap_seeds=(14, 15))
+    _, b1, b2, _, _ = bench_genome(len(ref), 11, hap_seeds=(14, 15))
     write_fasta(os.path.join(d, 'ref.fa'), {'chr1': ref})
     rows = ['NAME\tHAP_h1\tHAP_h2']
     for name, (x1, x2) in (('cohA', (a1, a2)), ('cohB', (b1, b2))):

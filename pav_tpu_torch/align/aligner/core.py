@@ -1265,6 +1265,10 @@ def _build_resident_from(arrays, devices):
         base_map[id(a)] = total
         srcs.append(a)
         total += len(a)
+    if total >= 1 << 31:
+        raise ValueError(f'a resident buffer of {total} bases: the gather descriptors '
+                         f'(affine_dp.align_batch_refs_async) hold int32 offsets, so it '
+                         f'must stay below 2^31 bases')
     if not srcs:
         return None, None
     t0 = _time.time()

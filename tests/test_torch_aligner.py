@@ -127,3 +127,12 @@ def test_resident_buffer_is_plain_codes():
     assert res[cpu].dtype == torch.int8
     assert res[cpu].tolist() == [0, 1, 2, 3, 4, 3, 3, 0]
     assert base == {id(a): 0, id(b): 5}
+
+
+def test_resident_buffer_refuses_int32_overflow():
+    """The gather descriptors hold int32 offsets: a buffer of 2^31 bases or
+    more raises before it is built, rather than wrapping."""
+    # Two 2^30-base views of one zero byte (no memory): 2^31 bases in all.
+    big = [np.broadcast_to(np.zeros(1, dtype=np.uint8), (1 << 30,)) for _ in range(2)]
+    with pytest.raises(ValueError, match='2\\^31'):
+        core._build_resident_from(big, [torch.device('cpu')])
