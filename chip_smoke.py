@@ -84,10 +84,17 @@ Phases (each prints its lines; any failure exits nonzero):
  11. chromosome scale: bench.py's chromosome sample (100 Mbp reference,
      seed 28, about 200 contig Mbp) through the same CLI in a child process
      (``--cli-child``), twice: a warm-up, then the measured run (wall, stage
-     seconds, launches, DP class table, density paths, the child's peak RSS
-     from os.wait4, nvidia-smi samples beside it); equal VCF records in both,
-     the full-width and traceback kernels must run, and the VCF must meet
-     the recall floors against the planted truth.
+     seconds, launches, DP class table with the DP kernel and the walker
+     timed per class, density paths, the child's peak RSS from os.wait4 and
+     torch's peak allocation in it, nvidia-smi samples beside it); equal VCF
+     records in both, the full-width and traceback kernels must run, and the
+     VCF must meet the recall floors against the planted truth;
+ 12. bench: ``bench_torch.py`` (the port of bench.py) in a subprocess on the
+     card with BENCH_ENV (a 10 Mbp chromosome child, at most two headline
+     iterations): its last JSON line must carry backend cuda, 0 < mfu <= 1
+     and the repeat-rich and chromosome keys, and its repeat-rich child must
+     launch dp_wave; its lines are relayed, and its headline set beside
+     phase 4's CLI rate on the same genome.
 The line before last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and no network;
 imports no jax.
@@ -146,6 +153,11 @@ DENSITY_LONG = (4, 1 << 18)     # phase 3 density: regions x n_pad
 # default, seed SEED + 17).
 CHROM_REF_LEN = 100_000_000
 CHROM_SEED = 28
+# Phase 12: bench_torch.py at its defaults but these, within its own budget
+# and a timeout (phase 11 already runs the 100 Mbp sample).
+BENCH_ENV = {'PAV_BENCH_CHROM_MBP': '10', 'PAV_BENCH_MAX_ITERS': '2',
+             'PAV_BENCH_TOTAL_S': '420'}
+BENCH_TIMEOUT = 480
 # tests/test_recall.py's floors against planted truth: (class, column, least).
 # INV also needs at least one INV in the truth.
 RECALL_FLOORS = (('SNV', 'RECALL', 0.99), ('SNV', 'PRECISION', 0.99),
@@ -219,10 +231,16 @@ def fail(msg):
 # --------------------------------------------------- synthetic genomes
 # The generators of tests/helpers.py (random background, planted
 # mutations with truth, repeat-rich references), here on the port's own
-# seqcodec so that this script imports nothing of the JAX package
-# (``seqcodec`` is bound by main once the checkout is found).
+# seqcodec so that this script imports nothing of the JAX package.
 
 BASES = 'ACGT'
+
+
+def _codec():
+    """The port's seqcodec, imported at first use: the checkout is on the
+    path by then (main puts it there; an importer has it already)."""
+    from pav_tpu_torch import seqcodec
+    return seqcodec
 
 
 def random_seq(n, rng, gc=0.5):
@@ -264,17 +282,17 @@ class Mutator:
         seq_codes = np.asarray(seq_codes, dtype=np.uint8)
         self.pieces.append(seq_codes)
         self.truth.append({'type': 'INS', 'pos': pos, 'len': len(seq_codes),
-                           'seq': seqcodec.decode(seq_codes)})
+                           'seq': _codec().decode(seq_codes)})
 
     def dele(self, pos, length):
         self._advance(pos)
         self.cursor = pos + length
         self.truth.append({'type': 'DEL', 'pos': pos, 'len': length,
-                           'seq': seqcodec.decode(self.ref[pos:pos + length])})
+                           'seq': _codec().decode(self.ref[pos:pos + length])})
 
     def inv(self, pos, length):
         self._advance(pos)
-        self.pieces.append(seqcodec.revcomp(self.ref[pos:pos + length]))
+        self.pieces.append(_codec().revcomp(self.ref[pos:pos + length]))
         self.cursor = pos + length
         self.truth.append({'type': 'INV', 'pos': pos, 'len': length})
 
@@ -327,7 +345,7 @@ def repeat_rich_ref(length, rng, n_gap_prop=0.005):
             src = segdup_bank[rng.integers(0, len(segdup_bank))]
             dup = diverge(src, rng.uniform(0.01, 0.05))
             if rng.random() < 0.3:                    # inverted duplication
-                dup = seqcodec.revcomp(dup)
+                dup = _codec().revcomp(dup)
                 ann.append(('inv_dup', cur, cur + len(dup)))
             else:
                 ann.append(('segdup', cur, cur + len(dup)))
@@ -341,7 +359,7 @@ def repeat_rich_ref(length, rng, n_gap_prop=0.005):
         elif r < 0.86 + n_gap_prop * 10:              # N-gap
             n = int(rng.integers(100, 5000))
             ann.append(('n_gap', cur, cur + n))
-            seg.append(np.full(n, seqcodec.AMBIG, dtype=np.uint8))
+            seg.append(np.full(n, _codec().AMBIG, dtype=np.uint8))
         else:                                         # low-complexity run
             unit = random_seq(int(rng.integers(1, 4)), rng)
             n = int(rng.integers(200, 1500))
@@ -1186,7 +1204,9 @@ def cli_child(stats_path, argv):
     ``python -m pav_tpu_torch`` runs) on ``argv`` in this process; then its
     wall, kernel launches, DP class table, density paths and the aligner's
     host seconds as JSON at ``stats_path``. The density paths are counted
-    by wrapping kde's host and batch functions: calls and largest grid."""
+    by wrapping kde's host and batch functions: calls and largest grid;
+    torch's peak device allocation and reservation of the run, where CUDA
+    was initialised."""
     import threading
     sys.path.insert(0, ROOT)
     from pav_tpu_torch.__main__ import main as cli_main
@@ -1208,11 +1228,14 @@ def cli_child(stats_path, argv):
     kde._density_state_kernel_batch = counted(
         kde._density_state_kernel_batch,
         lambda s, sig, n_pad, *_: (f'torch.fft on {sig.device.type}', int(n_pad)))
+    import torch
     t0 = time.time()
     rc = cli_main(argv)
     wall = time.time() - t0
+    memory = ([torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()]
+              if torch.cuda.is_initialized() else None)
     with open(stats_path, 'w') as fh:
-        json.dump({'rc': rc, 'wall': wall,
+        json.dump({'rc': rc, 'wall': wall, 'torch_memory': memory,
                    'launches': dict(dp_kernels.LAUNCHES,
                                     chain_scan=chain_scan.LAUNCHES['chain_scan']),
                    'classes': [[list(k), list(v)] for k, v in affine_dp.STATS['classes'].items()],
@@ -1371,8 +1394,6 @@ def main():
     dev = torch.device(DEVICE, 0) if DEVICE == 'cuda' else torch.device(DEVICE)
     if args.kernel_times or args.dp_full_times:
         return kernel_times(card, dev, dp_full_only=not args.kernel_times)
-    global seqcodec
-    from pav_tpu_torch import seqcodec
     log(card)
     import pandas
     log(f'torch {torch.__version__} (CUDA {torch.version.cuda}), numpy {np.__version__}, '
@@ -1406,7 +1427,7 @@ def main():
     torch.cuda.synchronize()
 
     with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
-        main_launches, genome = drive_main_path(work, card, dev)
+        main_launches, genome, bench16_rate = drive_main_path(work, card, dev)
         for key, count in drive_scale_out(work, card, dev, genome).items():
             main_launches[key] += count
         del genome
@@ -1415,6 +1436,9 @@ def main():
         stamp('phase 11')
         for key, count in phase_chrom(work, card, dev).items():
             main_launches[key] += count
+    stamp('phase 12')
+    torch.cuda.empty_cache()
+    phase_bench(card, bench16_rate)
     stamp('done')
 
     if 'jax' in sys.modules:
@@ -1467,12 +1491,15 @@ def dp_classes(label, classes, dev, events=False):
     """A sample's DP classes (affine_dp.STATS['classes']): launches, items,
     padded cells and path lengths; each class's DP kernel timed alone at its
     shape (its work does not depend on the data) times its resolved
-    launches: device time from a profiler trace, or with ``events`` CUDA
-    events around the wrapper (no profiler); and the run's bounds: dp_full
-    and dp_wave over their padded cells, the walker over the run's path
-    steps, and where a launch has fewer items than the card has SMs, the
-    one-item-per-SM bound (item_bound): a launch's padded item for the DP,
-    each class's longest path for the walker."""
+    launches, and the walker on that launch's tape (random inputs: its steps
+    depend on the data) the same way: device time from a profiler trace, or
+    with ``events`` CUDA events around the wrapper (no profiler); and the
+    run's bounds: dp_full and dp_wave over their padded cells, the walker
+    over the run's path steps, and where a launch has fewer items than the
+    card has SMs, the one-item-per-SM bound (item_bound): a launch's padded
+    item for the DP, each class's longest path for the walker. Returns one
+    dict a class: kind, max_m, max_n, width, b_pad, launches, ms and walk_ms
+    (ms a launch)."""
     import torch
     from pav_tpu_torch.ops import affine_dp, dp_kernels as K
 
@@ -1486,26 +1513,34 @@ def dp_classes(label, classes, dev, events=False):
             kind, ww = 'full', width
             ms = timed(lambda: K.align_full(q, r, m, n, SCORING),
                        5 if mm * nn >= 1 << 22 else 20, NEEDLES['dp_full'])
+            tb, offs = K.align_full(q, r, m, n, SCORING)
             bms = full_bound(b_pad, mm, nn)[0]
             ibm = item_bound(mm * (nn + 1), OPS_FULL_CELL)
         else:
             kind, ww = 'wave', affine_dp._wave_width(width)
-            doffs = affine_dp._wave_geometry(m, n, mm, nn, mm + nn, ww)
-            ms = timed(lambda: K.align_wave(q, r, m, n, doffs, ww, SCORING), 3,
+            offs = affine_dp._wave_geometry(m, n, mm, nn, mm + nn, ww)
+            ms = timed(lambda: K.align_wave(q, r, m, n, offs, ww, SCORING), 3,
                        NEEDLES['dp_wave'])
+            tb = K.align_wave(q, r, m, n, offs, ww, SCORING)
             bms = wave_bound(b_pad, mm, nn, ww)[0]
             ibm = item_bound((mm + nn) * ww, OPS_WAVE_CELL)
+        walk_ms = timed(lambda: K.traceback(tb, offs, q, r, m, n, kind == 'wave'), 5,
+                        NEEDLES['traceback'])
+        del tb, offs
         rows.append((kind, b_pad, mm, nn, width, ww, launches, items, cells, real, steps,
-                     longest, ms, bms, ibm if b_pad < 132 else None))
+                     longest, ms, bms, ibm if b_pad < 132 else None, walk_ms))
     rows.sort(key=lambda x: -x[6] * x[12])
     totals = {}
     for kind, b_pad, mm, nn, width, ww, launches, items, cells, real, steps, longest, ms, \
-            bms, ibm in rows:
+            bms, ibm, walk_ms in rows:
         totals[kind] = totals.get(kind, 0.0) + launches * ms
+        totals['walk'] = totals.get('walk', 0.0) + launches * walk_ms
         extra = '' if ibm is None else f'; one-item-per-SM bound {ibm:.4f} ms a launch'
         log(f'{label} class {kind} B={b_pad} {mm}x{width} ({ww} lanes): {launches} launches, '
             f'{items} items, {cells} padded cells ({real} real), path steps {steps} '
-            f'(longest {longest}); {ms:.4f} ms per launch, {launches * ms:.4f} ms in all{extra}')
+            f'(longest {longest}); {ms:.4f} ms per launch, {launches * ms:.4f} ms in all{extra}; '
+            f'walker {walk_ms:.4f} ms per launch (random inputs), {launches * walk_ms:.4f} ms '
+            f'in all')
     for kind in ('full', 'wave'):
         mine = [x for x in rows if x[0] == kind]
         if not mine:
@@ -1523,9 +1558,12 @@ def dp_classes(label, classes, dev, events=False):
     out_bytes = sum(x[6] * x[1] * (K.trace_len(x[2], x[3]) // 4 + 5) for x in rows)
     bms, by = walk_bound(steps, items, out_bytes)
     ibm = sum(item_bound(x[11], OPS_TRACE_STEP) for x in rows)
-    log(f'{label} traceback bound: {steps} path steps (longest {max(x[11] for x in rows)}) in '
+    log(f'{label} traceback: {totals["walk"]:.4f} ms from the class table; bound: {steps} path '
+        f'steps (longest {max(x[11] for x in rows)}) in '
         f'{sum(x[6] for x in rows)} launches, {out_bytes} output bytes: {bms:.4f} ms ({by}); '
         f'one-item-per-SM bound {ibm:.4f} ms (each class\'s longest path, walked on one SM)')
+    return [dict(kind=x[0], b_pad=x[1], max_m=x[2], max_n=x[3], width=x[4], launches=x[6],
+                 ms=x[12], walk_ms=x[15]) for x in rows]
 
 
 def traced_run(work, name, ref, haps, want, wall_note):
@@ -1565,8 +1603,8 @@ def traced_run(work, name, ref, haps, want, wall_note):
 
 def drive_main_path(work, card, dev):
     """Phases 4-6; returns the kernel launches of phases 4 and 5 (each read
-    from 0 just before its run to just after it), and phase 4's genome
-    (ref, h1, h2)."""
+    from 0 just before its run to just after it), phase 4's genome (ref,
+    h1, h2) and its contig Mbp/s (the CLI's wall)."""
     import torch
     from pav_tpu_torch.align.aligner import core
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
@@ -1592,9 +1630,9 @@ def drive_main_path(work, card, dev):
     # A copy of the counters: the traced run below adds to the same lists.
     classes = {k: tuple(v) for k, v in affine_dp.STATS['classes'].items()}
     recs = vcf_records(os.path.join(run_dir, 'bench16.vcf.gz'))
-    mbp = (len(h1) + len(h2)) / 1e6
+    rate = (len(h1) + len(h2)) / 1e6 / wall
     log(f'main path {len(ref) / 1e6:g} Mbp diploid: {len(recs)} VCF records, wall {wall:.2f} s '
-        f'(no profiler), {mbp / wall:.3f} contig Mbp/s on {card}; launches {main_launches}')
+        f'(no profiler), {rate:.3f} contig Mbp/s on {card}; launches {main_launches}')
     log('stage seconds: ' + json.dumps(stage_seconds(run_dir, 'bench16')))
     log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
         {k: round(v, 3) for k, v in core.ALIGN_STATS.items()}))
@@ -1654,7 +1692,7 @@ def drive_main_path(work, card, dev):
              f'{len(cpu_recs)} records)')
     log(f'parity: cuda and cpu (ladder=accel) VCFs of the e2e genome identical '
         f'({len(gpu_recs)} records)')
-    return main_launches, genome
+    return main_launches, genome, rate
 
 
 def drive_scale_out(work, card, dev, genome):
@@ -1856,9 +1894,63 @@ def phase_chrom(work, card, dev):
         f'{[(k, st["classes"][k][0]) for k in wide] or "none"}')
     log(f'{name} CLI child: peak RSS {rss / 2**30:.2f} GiB (os.wait4 ru_maxrss); '
         f'{smi_note(smi, before)}; on {card}')
+    if st['torch_memory'] is None:
+        fail(f'{name}: the CLI child never initialised CUDA')
+    log(f'{name} CLI child: torch max_memory_allocated {st["torch_memory"][0] / 2**20:.1f} MiB, '
+        f'max_memory_reserved {st["torch_memory"][1] / 2**20:.1f} MiB (the whole CLI run)')
     dp_classes(name, st['classes'], dev, events=True)
     hold_to_truth(f'{name} VCF', vcf, t1 + t2)
     return launches
+
+
+def phase_bench(card, bench16_rate):
+    """12. ``bench_torch.py --device DEVICE`` with BENCH_ENV in a subprocess
+    (its own process group, killed whole at BENCH_TIMEOUT); its lines are
+    relayed. Its last JSON line must carry backend DEVICE, 0 < mfu <= 1 and
+    the three secondary keys, and its repeat-rich child must launch
+    dp_wave."""
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, os.path.join(ROOT, 'bench_torch.py'),
+                             '--device', DEVICE], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True,
+                            env=dict(os.environ, PYTHONPATH=ROOT, **BENCH_ENV))
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, 9)
+    wall = time.time() - t0
+    for line in err.splitlines():
+        log(f'  bench_torch stderr: {line}')
+    for line in out.splitlines():
+        log(f'  bench_torch stdout: {line}')
+    if proc.returncode != 0:
+        fail(f'bench_torch.py exited {proc.returncode} after {wall:.0f} s')
+    lines = [json.loads(line) for line in out.splitlines() if line.startswith('{')]
+    if not lines:
+        fail('bench_torch.py printed no JSON line')
+    last = lines[-1]
+    missing = [k for k in ('metric', 'value', 'unit', 'vs_baseline', 'mfu', 'peak_rss_gb',
+                           'backend', 'repeat_rich_mbp_s', 'chrom_scale_mbp_s',
+                           'chrom_peak_rss_gb') if k not in last]
+    if missing or last['backend'] != DEVICE:
+        fail(f'bench_torch.py: last JSON line lacks {missing} or has backend '
+             f'{last.get("backend")}: {last}')
+    if not (isinstance(last['mfu'], float) and 0 < last['mfu'] <= 1):
+        fail(f'bench_torch.py: mfu {last["mfu"]} is not in (0, 1]')
+    rep = [line.split('repeat launches ', 1)[1] for line in err.splitlines()
+           if 'repeat launches ' in line]
+    if not rep or json.loads(rep[-1])['wave'] <= 0:
+        fail(f'bench_torch.py: the repeat-rich child launched no dp_wave: {rep}')
+    log(f'bench_torch.py ({json.dumps(BENCH_ENV)}): exit 0 in {wall:.1f} s; headline '
+        f'{last["value"]} contig Mbp/s (best in-process Pipeline.run_sample) against phase '
+        f'4\'s {bench16_rate:.4f} (one CLI run in this process, the same genome): ratio '
+        f'{last["value"] / bench16_rate:.3f}; mfu {last["mfu"]}; repeat-rich '
+        f'{last["repeat_rich_mbp_s"]} Mbp/s, dp_wave launches {json.loads(rep[-1])["wave"]}; '
+        f'chrom {last["chrom_scale_mbp_s"]} Mbp/s; on {card}')
 
 
 def _free_port():

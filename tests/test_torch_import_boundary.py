@@ -117,9 +117,11 @@ def test_entry_points_and_eval_run_without_jax(tmp_path):
 
 
 def test_no_source_file_imports_jax():
-    """No module of the port and not chip_smoke.py imports jax or pav_tpu."""
+    """No module of the port, not chip_smoke.py and not bench_torch.py
+    imports jax or pav_tpu (bench_torch.py's run with both blocked is
+    test_torch_bench.py's)."""
     offenders = []
-    paths = [os.path.join(REPO, 'chip_smoke.py')]
+    paths = [os.path.join(REPO, 'chip_smoke.py'), os.path.join(REPO, 'bench_torch.py')]
     for root, _, files in os.walk(PKG_DIR):
         paths += [os.path.join(root, name) for name in files if name.endswith('.py')]
     for path in paths:

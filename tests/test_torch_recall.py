@@ -27,7 +27,6 @@ import bench
 import chip_smoke
 from pav_tpu.io.fasta import SeqStore as RefSeqStore
 from pav_tpu.pipeline import Pipeline as RefPipeline
-from pav_tpu_torch import seqcodec
 from pav_tpu_torch import eval as ev
 from pav_tpu_torch.io.fasta import SeqStore
 from pav_tpu_torch.pipeline import Pipeline
@@ -127,10 +126,9 @@ def test_merged_tables_equal_reference(genome, port_cpu):
                                       want[key].reset_index(drop=True), obj=str(key))
 
 
-def test_chip_smoke_generator_equals_bench(monkeypatch):
+def test_chip_smoke_generator_equals_bench():
     """chip_smoke.bench_genome, truth included, replays bench.py's
     build_genome (tests/helpers.py's Mutator)."""
-    monkeypatch.setattr(chip_smoke, 'seqcodec', seqcodec, raising=False)
     got = chip_smoke.bench_genome(REF_LEN, SEED)
     want = _build_genome(REF_LEN, SEED)
     for a, b in zip(got[:3], want[:3]):
