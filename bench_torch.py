@@ -13,7 +13,7 @@ The protocol of bench.py on ``pav_tpu_torch``:
    ``PAV_BENCH_ITERS``, at most ``PAV_BENCH_MAX_ITERS``) or the budget
    (``PAV_BENCH_TOTAL_S``) runs short. The best iteration's VCF must meet
    tests/test_recall.py's floors against the planted truth
-   (``chip_smoke.hold_to_truth``), and on the card its dp_full and walker
+   (``pav_tpu_torch.synth.hold_to_truth``), and on the card its dp_full and walker
    launches must be non-zero; otherwise the script exits nonzero and prints
    no number.
 2. Repeat-rich: a child process (``--repeat-child``) runs bench.py's
@@ -43,7 +43,9 @@ a wavefront launch), over the DP kernels' device time (each class timed
 alone with CUDA events, times its launches) at ``chip_smoke.INT32_OPS_S``.
 On the CPU there is no card rate and ``mfu`` is null.
 
-Imports torch, numpy, pav_tpu_torch and chip_smoke.py; never jax.
+The samples and the truth check come from ``pav_tpu_torch.synth``; the DP
+class timing and the operation counts from ``chip_smoke.py``. Imports torch,
+numpy, pav_tpu_torch and chip_smoke.py; never jax.
 """
 
 import argparse
@@ -62,6 +64,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from pav_tpu_torch import synth  # noqa: E402
 
 T0 = time.time()
 BASELINE_MBP_S = 0.33          # the reference PAV's CPU rate (BASELINE.md)
@@ -179,7 +182,7 @@ def card_line():
 def repeat_sample():
     """(reference, haplotype) of bench.py's repeat-rich sample: half the
     headline's reference length, seed 18."""
-    return chip_smoke.repeat_genome(int(REF_MBP * 1e6 / 2), SEED + 7)
+    return synth.repeat_genome(int(REF_MBP * 1e6 / 2), SEED + 7)
 
 
 def repeat_child(dev):
@@ -220,7 +223,7 @@ def chrom_child(dev):
     from pav_tpu_torch.align.aligner.core import ALIGN_STATS
     chrom_mbp = float(os.environ.get('PAV_BENCH_CHROM_MBP', 100))
     prefault('PAV_BENCH_CHROM_PREFAULT_GB')
-    ref, h1, h2, _, _ = chip_smoke.bench_genome(int(chrom_mbp * 1e6), SEED + 17)
+    ref, h1, h2, _, _ = synth.bench_genome(int(chrom_mbp * 1e6), SEED + 17)
     contig_mbp = (len(h1) + len(h2)) / 1e6
 
     def one_pass():
@@ -337,9 +340,9 @@ def headline(dev, work):
     from pav_tpu_torch.align.aligner.core import ALIGN_STATS
 
     prefault('PAV_BENCH_PREFAULT_GB')
-    ref, h1, h2, t1, t2 = chip_smoke.bench_genome(int(REF_MBP * 1e6), SEED)
+    ref, h1, h2, t1, t2 = synth.bench_genome(int(REF_MBP * 1e6), SEED)
     ref_store = SeqStore({'chr1': ref})
-    wref, wh1, wh2, _, _ = chip_smoke.bench_genome(300000, SEED + 99)
+    wref, wh1, wh2, _, _ = synth.bench_genome(300000, SEED + 99)
     Pipeline(SeqStore({'chr1': wref}), dict(CONFIG), device=dev).run_sample(
         'warm', {'h1': SeqStore({'w1': wh1}), 'h2': SeqStore({'w2': wh2})}, write_vcf=False)
     if dev.type == 'cuda':
@@ -416,7 +419,7 @@ def main():
             say(f'the headline run launched no dp_full or walker kernel: {n_launch}')
             return 1
         with contextlib.redirect_stdout(sys.stderr):
-            chip_smoke.hold_to_truth('headline VCF', vcf, truth)
+            synth.hold_to_truth('headline VCF', vcf, truth)
 
     value = contig_mbp / elapsed
     peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernel-times
     python3 chip_smoke.py --dp-full-times
     python3 chip_smoke.py --chrom
+    python3 chip_smoke.py --wide
 
 With ``--kernel-times`` it only times the DP kernels, the walker and the
 chain scan of the checkout it sits in (phase 3's inputs and device timing,
@@ -20,10 +21,11 @@ windowed design is timed beside the default at every tape where the
 checkout's library can force it (``pav_traceback_whole_max``). Phase 3 of
 a full run takes its device times from such a fresh process.
 ``--dp-full-times`` prints the dp_full part alone as {"root", "card",
-"shapes": [...]}. ``--chrom`` runs phases 1, 2 and 11 alone and prints no
-result line. A copy of this file placed in another checkout (``git
-archive`` of a parent commit) times that checkout's kernels: run the two in
-one call, in turns (A, B, B, A), to compare two versions on one card.
+"shapes": [...]}. ``--chrom`` runs phases 1, 2 and 11 alone, ``--wide``
+phases 1, 2 and 13; neither prints a result line. A copy of this file
+placed in another checkout (``git archive`` of a parent commit) times that
+checkout's kernels: run the two in one call, in turns (A, B, B, A), to
+compare two versions on one card.
 
 Phases (each prints its lines; any failure exits nonzero):
   1. environment: nvidia-smi name and power limit, versions, device name;
@@ -87,14 +89,30 @@ Phases (each prints its lines; any failure exits nonzero):
      seconds, launches, DP class table with the DP kernel and the walker
      timed per class, density paths, the child's peak RSS from os.wait4 and
      torch's peak allocation in it, nvidia-smi samples beside it); equal VCF
-     records in both, the full-width and traceback kernels must run, and the
-     VCF must meet the recall floors against the planted truth;
+     records in both, the full-width and traceback kernels must run, the
+     walker's launches are timed on the run's own tapes in the warm-up run
+     (the measured run carries no such instrumentation), and the VCF must
+     meet the recall floors against the planted truth;
  12. bench: ``bench_torch.py`` (the port of bench.py) in a subprocess on the
      card with BENCH_ENV (a 10 Mbp chromosome child, at most two headline
      iterations): its last JSON line must carry backend cuda, 0 < mfu <= 1
      and the repeat-rich and chromosome keys, and its repeat-rich child must
      launch dp_wave; its lines are relayed, and its headline set beside
-     phase 4's CLI rate on the same genome.
+     phase 4's CLI rate on the same genome;
+ 13. kilobase SVs (pav_tpu_torch.synth.wide_genome: bench.py's generator
+     with 30% of its SVs of 2-10 kb), whose DP segments take dp_full's wide
+     path: (a) a 400 kb genome through the CLI on cuda and on the cpu
+     through ``Pipeline(ladder='accel')``: identical VCF records, widths
+     8193 and 32769 launched on the card; (b) wide16 (16 Mbp, seed 41)
+     measured as phase 4 is, both widths and the walker launched, its VCF
+     records equal to pav_tpu's on its accelerator branch (a digest from
+     tests/wide_reference.py, synth.WIDE16_REFERENCE), held to the recall
+     floors and its SVs of >= 2 kb to the INS and DEL floors, then again
+     under a CUDA-activity trace (equal VCF records; dp_full by launch
+     grid, the walker on the run's tapes), its DP class table, and each of
+     its classes (dp_full at widths 8193 and 32769, dp_wave's 8192-row
+     class) at its own shape and batch, kernel and walker against their
+     plain versions bit for bit.
 The line before last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and no network;
 imports no jax.
@@ -153,17 +171,13 @@ DENSITY_LONG = (4, 1 << 18)     # phase 3 density: regions x n_pad
 # default, seed SEED + 17).
 CHROM_REF_LEN = 100_000_000
 CHROM_SEED = 28
+# Phase 13's samples, widths and wide16's reference digest are
+# pav_tpu_torch.synth's WIDE_SMALL, WIDE16, WIDE_WIDTHS and WIDE16_REFERENCE.
 # Phase 12: bench_torch.py at its defaults but these, within its own budget
 # and a timeout (phase 11 already runs the 100 Mbp sample).
 BENCH_ENV = {'PAV_BENCH_CHROM_MBP': '10', 'PAV_BENCH_MAX_ITERS': '2',
              'PAV_BENCH_TOTAL_S': '420'}
 BENCH_TIMEOUT = 480
-# tests/test_recall.py's floors against planted truth: (class, column, least).
-# INV also needs at least one INV in the truth.
-RECALL_FLOORS = (('SNV', 'RECALL', 0.99), ('SNV', 'PRECISION', 0.99),
-                 ('INS', 'RECALL', 0.97), ('DEL', 'RECALL', 0.97),
-                 ('INS', 'PRECISION', 0.95), ('DEL', 'PRECISION', 0.95),
-                 ('INV', 'RECALL', 1.0))
 # What nvidia-smi samples beside a measured run, every SMI_PERIOD_MS.
 SMI_QUERY = 'memory.used,power.draw,clocks.sm,clocks.mem,utilization.gpu'
 SMI_PERIOD_MS = 200
@@ -226,151 +240,6 @@ def stamp(label):
 def fail(msg):
     print(f'chip_smoke: FAILED: {msg}', file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-# --------------------------------------------------- synthetic genomes
-# The generators of tests/helpers.py (random background, planted
-# mutations with truth, repeat-rich references), here on the port's own
-# seqcodec so that this script imports nothing of the JAX package.
-
-BASES = 'ACGT'
-
-
-def _codec():
-    """The port's seqcodec, imported at first use: the checkout is on the
-    path by then (main puts it there; an importer has it already)."""
-    from pav_tpu_torch import seqcodec
-    return seqcodec
-
-
-def random_seq(n, rng, gc=0.5):
-    p = np.array([(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2])
-    return rng.choice(4, size=n, p=p).astype(np.uint8)
-
-
-class Mutator:
-    """Applies mutations to a code-array sequence, tracking truth records.
-
-    Mutations are specified at original (reference) coordinates and must be
-    non-overlapping and applied in ascending position order.
-    """
-
-    def __init__(self, ref_codes):
-        self.ref = np.asarray(ref_codes, dtype=np.uint8)
-        self.pieces = []   # list of code arrays composing the mutant
-        self.cursor = 0    # position in ref consumed so far
-        self.truth = []    # list of dicts: type, ref_pos, len, seq
-
-    def _advance(self, pos):
-        if pos < self.cursor:
-            raise ValueError('Mutations must be applied in ascending order')
-        self.pieces.append(self.ref[self.cursor:pos])
-        self.cursor = pos
-
-    def snv(self, pos, alt=None, rng=None):
-        self._advance(pos)
-        ref_base = int(self.ref[pos])
-        if alt is None:
-            choices = [b for b in range(4) if b != ref_base]
-            alt = int((rng or np.random.default_rng(pos)).choice(choices))
-        self.pieces.append(np.array([alt], dtype=np.uint8))
-        self.cursor = pos + 1
-        self.truth.append({'type': 'SNV', 'pos': pos, 'ref': BASES[ref_base], 'alt': BASES[alt]})
-
-    def ins(self, pos, seq_codes):
-        self._advance(pos)
-        seq_codes = np.asarray(seq_codes, dtype=np.uint8)
-        self.pieces.append(seq_codes)
-        self.truth.append({'type': 'INS', 'pos': pos, 'len': len(seq_codes),
-                           'seq': _codec().decode(seq_codes)})
-
-    def dele(self, pos, length):
-        self._advance(pos)
-        self.cursor = pos + length
-        self.truth.append({'type': 'DEL', 'pos': pos, 'len': length,
-                           'seq': _codec().decode(self.ref[pos:pos + length])})
-
-    def inv(self, pos, length):
-        self._advance(pos)
-        self.pieces.append(_codec().revcomp(self.ref[pos:pos + length]))
-        self.cursor = pos + length
-        self.truth.append({'type': 'INV', 'pos': pos, 'len': length})
-
-    def finish(self):
-        self._advance(len(self.ref))
-        return np.concatenate(self.pieces) if self.pieces else np.zeros(0, dtype=np.uint8)
-
-
-def repeat_rich_ref(length, rng, n_gap_prop=0.005):
-    """A reference with realistic repeat structure: tandem arrays, diverged
-    segmental duplications, inverted duplications, an interspersed repeat
-    family, and N-gap runs over a random background.
-
-    These are the inputs that actually break aligners (VERDICT r1 weak #6;
-    reference stressors: pavlib/inv.py:457-561 inverted dups,
-    scripts/density.py:47 low-complexity bail). Returns (codes, annotations)
-    where annotations is a list of (kind, pos, end) for the planted features.
-    """
-    seg = []
-    ann = []
-    cur = 0
-
-    # An ALU-like 300bp family consensus reused genome-wide with divergence.
-    family = random_seq(300, rng)
-
-    def diverge(codes, rate):
-        out = codes.copy()
-        n_mut = rng.binomial(len(codes), rate)
-        if n_mut:
-            idx = rng.choice(len(codes), n_mut, replace=False)
-            out[idx] = (out[idx] + 1 + rng.integers(0, 3, n_mut)) % 4
-        return out
-
-    segdup_bank = []
-    while cur < length:
-        r = rng.random()
-        if r < 0.42:                                  # unique background
-            n = int(rng.integers(3000, 12000))
-            seg.append(random_seq(n, rng))
-        elif r < 0.62:                                # tandem array
-            unit = random_seq(int(rng.integers(2, 200)), rng)
-            copies = int(rng.integers(5, max(6, 2000 // max(len(unit), 1))))
-            arr = diverge(np.tile(unit, copies), 0.01)
-            ann.append(('tandem', cur, cur + len(arr)))
-            seg.append(arr)
-        elif r < 0.74:                                # interspersed family
-            seg.append(diverge(family, 0.08))
-            ann.append(('family', cur, cur + 300))
-        elif r < 0.86 and segdup_bank:                # segdup copy (1-5% div)
-            src = segdup_bank[rng.integers(0, len(segdup_bank))]
-            dup = diverge(src, rng.uniform(0.01, 0.05))
-            if rng.random() < 0.3:                    # inverted duplication
-                dup = _codec().revcomp(dup)
-                ann.append(('inv_dup', cur, cur + len(dup)))
-            else:
-                ann.append(('segdup', cur, cur + len(dup)))
-            seg.append(dup)
-        elif r < 0.86:                                # seed a segdup source
-            n = int(rng.integers(5000, 20000))
-            block = random_seq(n, rng)
-            segdup_bank.append(block)
-            ann.append(('segdup_src', cur, cur + n))
-            seg.append(block)
-        elif r < 0.86 + n_gap_prop * 10:              # N-gap
-            n = int(rng.integers(100, 5000))
-            ann.append(('n_gap', cur, cur + n))
-            seg.append(np.full(n, _codec().AMBIG, dtype=np.uint8))
-        else:                                         # low-complexity run
-            unit = random_seq(int(rng.integers(1, 4)), rng)
-            n = int(rng.integers(200, 1500))
-            arr = np.tile(unit, n // len(unit) + 1)[:n]
-            ann.append(('low_complexity', cur, cur + n))
-            seg.append(arr)
-        cur += len(seg[-1])
-
-    codes = np.concatenate(seg)[:length]
-    ann = [(k, p, min(e, length)) for k, p, e in ann if p < length]
-    return codes, ann
 
 
 # ------------------------------------------------------------------ inputs
@@ -540,142 +409,6 @@ def write_fasta(path, records):
             fh.write(f'>{name}\n'.encode())
             for i in range(0, len(seq), 80):
                 fh.write(seq[i:i + 80] + b'\n')
-
-
-def bench_genome(ref_len, seed, hap_seeds=None):
-    """The diploid sample of bench.py's build_genome (no cache): (ref, h1,
-    h2, truth of h1, truth of h2), the truths as Mutator.truth lists;
-    haplotype seeds default to bench.py's (seed + 1, seed + 2)."""
-    rng = np.random.default_rng(seed)
-    ref = random_seq(ref_len, rng)
-    s1, s2 = hap_seeds or (seed + 1, seed + 2)
-
-    def make_hap(seed2, with_inv):
-        rng2 = np.random.default_rng(seed2)
-        mut = Mutator(ref)
-        pos = 2000
-        inv_planted = False
-        while pos < ref_len - 20000:
-            r = rng2.random()
-            if r < 0.80:
-                mut.snv(pos, rng=rng2)
-            elif r < 0.95:
-                ln = int(rng2.integers(1, 25))
-                if rng2.random() < 0.5:
-                    mut.ins(pos, random_seq(ln, rng2))
-                else:
-                    mut.dele(pos, ln)
-            elif r < 0.985:
-                ln = int(rng2.integers(50, 1500))
-                if rng2.random() < 0.5:
-                    mut.ins(pos, random_seq(ln, rng2))
-                else:
-                    mut.dele(pos, ln)
-            else:
-                if with_inv and not inv_planted and pos < ref_len - 40000:
-                    mut.inv(pos, int(rng2.integers(3000, 8000)))
-                    inv_planted = True
-            pos = max(pos + int(rng2.integers(800, 1800)), mut.cursor + 200)
-        return mut.finish(), mut.truth
-
-    (h1, t1), (h2, t2) = make_hap(s1, False), make_hap(s2, True)
-    return ref, h1, h2, t1, t2
-
-
-def repeat_genome(ref_len, seed):
-    """The repeat-rich sample of bench.py (repeat_rich_ref + its mutator)."""
-    rrng = np.random.default_rng(seed)
-    rref, _ = repeat_rich_ref(ref_len, rrng)
-    rmut = Mutator(rref)
-    pos = 2000
-    while pos < len(rref) - 20000:
-        r = rrng.random()
-        if r < 0.8:
-            if rref[pos] < 4:
-                rmut.snv(pos, rng=rrng)
-        elif r < 0.97:
-            ln = int(rrng.integers(1, 40))
-            if rrng.random() < 0.5:
-                rmut.ins(pos, random_seq(ln, rrng))
-            else:
-                rmut.dele(pos, ln)
-        else:
-            ln = int(rrng.integers(50, 1200))
-            if rrng.random() < 0.5:
-                rmut.ins(pos, random_seq(ln, rrng))
-            else:
-                rmut.dele(pos, ln)
-        pos = max(pos + int(rrng.integers(900, 2000)), rmut.cursor + 200)
-    return rref, rmut.finish()
-
-
-def e2e_genome():
-    """The genome of tests/test_pipeline_e2e.py."""
-    rng = np.random.default_rng(71)
-    ref = random_seq(150000, rng)
-    m1 = Mutator(ref)
-    m1.snv(10000, rng=rng)
-    m1.ins(20000, random_seq(12, rng))
-    m1.dele(30000, 7)
-    m1.ins(50000, random_seq(250, rng))
-    m1.dele(70000, 400)
-    m1.snv(90000, rng=rng)
-    h1 = m1.finish()
-    m2 = Mutator(ref)
-    m2.snv(10000, alt=int(m1.truth[0]['alt'] == 'A'), rng=rng)
-    m2.pieces[-1] = np.array(['ACGT'.index(m1.truth[0]['alt'])], dtype=np.uint8)
-    m2.ins(50000, np.array(['ACGT'.index(c) for c in m1.truth[3]['seq']],
-                           dtype=np.uint8))
-    m2.snv(60000, rng=rng)
-    m2.inv(100000, 4000)
-    return ref, h1, m2.finish()
-
-
-# ------------------------------------------------------ planted truth
-
-def truth_to_df(truth, chrom='chr1'):
-    """Mutator truth records as a call table (tests/test_recall.py's)."""
-    import pandas as pd
-    rows = []
-    for t in truth:
-        if t['type'] == 'SNV':
-            rows.append((chrom, t['pos'], t['pos'] + 1, 'SNV', 1, t['ref'], t['alt']))
-        elif t['type'] == 'INS':
-            rows.append((chrom, t['pos'], t['pos'] + 1, 'INS', t['len'], 'N', 'N'))
-        elif t['type'] == 'DEL':
-            rows.append((chrom, t['pos'], t['pos'] + t['len'], 'DEL', t['len'], 'N', 'N'))
-        elif t['type'] == 'INV':
-            rows.append((chrom, t['pos'], t['pos'] + t['len'], 'INV', t['len'], 'N', 'N'))
-    df = pd.DataFrame(rows, columns=['#CHROM', 'POS', 'END', 'SVTYPE', 'SVLEN', 'REF', 'ALT'])
-    df['ID'] = [f'truth{i}' for i in range(df.shape[0])]
-    df['FILTER'] = 'PASS'
-    df['GT'] = '1'
-    return df
-
-
-def truth_report(vcf_path, truth):
-    """(report, misses): the concordance of a VCF with planted truth by
-    class (pav_tpu_torch.eval, the matching of tests/test_recall.py, the
-    truth deduplicated as there) and the RECALL_FLOORS it misses."""
-    from pav_tpu_torch import eval as ev
-    want = truth_to_df(truth).drop_duplicates(subset=['POS', 'SVTYPE', 'SVLEN', 'ALT'])
-    rep = ev.concordance(want, ev.read_vcf(vcf_path)).set_index('SVTYPE')
-    misses = [f'{cls} {col} {rep.loc[cls, col]:.4f} < {floor}'
-              for cls, col, floor in RECALL_FLOORS if not rep.loc[cls, col] >= floor]
-    if not rep.loc['INV', 'N_TRUTH'] >= 1:
-        misses.append('no INV in the truth')
-    return rep, misses
-
-
-def hold_to_truth(label, vcf_path, truth):
-    """Fail unless the VCF meets RECALL_FLOORS against planted truth; logs
-    the concordance table either way."""
-    t0 = time.time()
-    rep, misses = truth_report(vcf_path, truth)
-    log(f'{label} against planted truth ({time.time() - t0:.1f} s):\n{rep.to_string()}')
-    if misses:
-        fail(f'{label} misses the recall floors: {"; ".join(misses)}')
-    log(f'{label}: every recall floor met')
 
 
 # ------------------------------------------------------------------ timing
@@ -1206,7 +939,15 @@ def cli_child(stats_path, argv):
     host seconds as JSON at ``stats_path``. The density paths are counted
     by wrapping kde's host and batch functions: calls and largest grid;
     torch's peak device allocation and reservation of the run, where CUDA
-    was initialised."""
+    was initialised. With ``--time-walks`` first in ``argv`` (a run that is
+    not measured: it adds CUDA events, device-to-host copies and pinned
+    host memory to the run), each walker launch (``dp_kernels.traceback``
+    on a CUDA tape) on the run's own tapes: 'walk_ms' the time between CUDA
+    events recorded on its stream around the call (the stream is mostly
+    idle, so the host's time between the start event and the launch is
+    inside), 'walk_device_ms' the kernel's device time (device_ms) when its
+    inputs, copied to pinned host memory during the run, are walked again
+    after it; one entry a launch."""
     import threading
     sys.path.insert(0, ROOT)
     from pav_tpu_torch.__main__ import main as cli_main
@@ -1229,30 +970,64 @@ def cli_child(stats_path, argv):
         kde._density_state_kernel_batch,
         lambda s, sig, n_pad, *_: (f'torch.fft on {sig.device.type}', int(n_pad)))
     import torch
+    time_walks = argv[:1] == ['--time-walks']
+    argv = argv[1:] if time_walks else argv
+    walks = []
+    walk = dp_kernels.traceback
+
+    def host_copy(t):
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t, non_blocking=True)
+
+    def timed_walk(tb, offs, q, r, m, n, wave):
+        if not tb.is_cuda:
+            return walk(tb, offs, q, r, m, n, wave)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = walk(tb, offs, q, r, m, n, wave)
+        end.record()
+        kept = [host_copy(t) for t in (tb, offs, q, r, m, n)]
+        with lock:
+            walks.append((start, end, kept, wave))
+        return out
+    if time_walks:
+        dp_kernels.traceback = timed_walk
     t0 = time.time()
     rc = cli_main(argv)
     wall = time.time() - t0
-    memory = ([torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()]
-              if torch.cuda.is_initialized() else None)
+    stats = {'rc': rc, 'wall': wall, 'torch_memory': None,
+             'launches': dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan']),
+             'classes': [[list(k), list(v)] for k, v in affine_dp.STATS['classes'].items()],
+             'density': density, 'align_stats': dict(core.ALIGN_STATS),
+             'walk_ms': [], 'walk_device_ms': []}
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        stats['torch_memory'] = [torch.cuda.max_memory_allocated(),
+                                 torch.cuda.max_memory_reserved()]
+        dev = torch.device('cuda', torch.cuda.current_device())
+        for start, end, kept, wave in walks:
+            stats['walk_ms'].append(start.elapsed_time(end))
+            args = [t.to(dev) for t in kept]
+            stats['walk_device_ms'].append(
+                device_ms(lambda: walk(*args, wave), 3, NEEDLES['traceback'])[0])
     with open(stats_path, 'w') as fh:
-        json.dump({'rc': rc, 'wall': wall, 'torch_memory': memory,
-                   'launches': dict(dp_kernels.LAUNCHES,
-                                    chain_scan=chain_scan.LAUNCHES['chain_scan']),
-                   'classes': [[list(k), list(v)] for k, v in affine_dp.STATS['classes'].items()],
-                   'density': density, 'align_stats': dict(core.ALIGN_STATS)}, fh)
+        json.dump(stats, fh)
     return rc
 
 
-def run_cli_child(d, argv, label, timeout):
-    """``chip_smoke.py --cli-child`` (the CLI on ``argv``) as a child
-    process; its output goes to ``d/label.log``. Returns (stats, process
-    wall, peak RSS in bytes of that child alone, from os.wait4)."""
+def run_cli_child(d, argv, label, timeout, time_walks=False):
+    """``chip_smoke.py --cli-child`` (the CLI on ``argv``; ``time_walks``:
+    with --time-walks) as a child process; its output goes to
+    ``d/label.log``. Returns (stats, process wall, peak RSS in bytes of
+    that child alone, from os.wait4)."""
     stats_path = os.path.join(d, f'{label}_stats.json')
     log_path = os.path.join(d, f'{label}.log')
     with open(log_path, 'w') as fh:
         t0 = time.time()
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), '--cli-child',
-                                 stats_path, *argv], stdout=fh, stderr=subprocess.STDOUT,
+                                 stats_path, *(['--time-walks'] if time_walks else []), *argv],
+                                stdout=fh, stderr=subprocess.STDOUT,
                                 env=dict(os.environ, PYTHONPATH=ROOT))
         timer = threading.Timer(timeout, proc.kill)
         timer.start()
@@ -1376,6 +1151,8 @@ def main():
                     help="only time this checkout's full-width DP kernel at FULL_SHAPES")
     ap.add_argument('--chrom', action='store_true',
                     help='run phases 1, 2 and 11 only (the chromosome-scale sample)')
+    ap.add_argument('--wide', action='store_true',
+                    help='run phases 1, 2 and 13 only (the kilobase-SV samples)')
     args = ap.parse_args()
     if not os.path.isfile(os.path.join(ROOT, 'pav_tpu_torch', 'ops', 'dp_kernels.py')):
         fail(f'no pav_tpu_torch package beside {__file__}: run from a checkout of the repo')
@@ -1411,10 +1188,14 @@ def main():
         if 'registers' in line or 'spill' in line:
             log(f'  ptxas: {line.strip()}')
 
-    if args.chrom:
+    if args.chrom or args.wide:
         with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
-            stamp('phase 11')
-            phase_chrom(work, card, dev)
+            if args.chrom:
+                stamp('phase 11')
+                phase_chrom(work, card, dev)
+            if args.wide:
+                stamp('phase 13')
+                phase_wide(work, card, dev)
         stamp('done')
         return 0
 
@@ -1439,6 +1220,10 @@ def main():
     stamp('phase 12')
     torch.cuda.empty_cache()
     phase_bench(card, bench16_rate)
+    stamp('phase 13')
+    with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
+        for key, count in phase_wide(work, card, dev).items():
+            main_launches[key] += count
     stamp('done')
 
     if 'jax' in sys.modules:
@@ -1480,7 +1265,8 @@ def trace_launch_shapes(path, needle):
     for ev in events:
         if ev.get('cat') == 'kernel' and needle in ev.get('name', ''):
             args = ev.get('args', {})
-            key = (ev['name'].split('(')[0].split('::')[-1],
+            kname = ev['name'].replace('(anonymous namespace)::', '').split('(')[0]
+            key = (kname.removeprefix('void ').strip(),
                    tuple(args.get('grid', ())), tuple(args.get('block', ())))
             ms, count = out.get(key, (0.0, 0))
             out[key] = (ms + ev['dur'] / 1e3, count + 1)
@@ -1601,22 +1387,16 @@ def traced_run(work, name, ref, haps, want, wall_note):
     return launches
 
 
-def drive_main_path(work, card, dev):
-    """Phases 4-6; returns the kernel launches of phases 4 and 5 (each read
-    from 0 just before its run to just after it), phase 4's genome (ref,
-    h1, h2) and its contig Mbp/s (the CLI's wall)."""
+def measured_run(work, name, ref, haps, card):
+    """One CLI run of a sample on DEVICE without a profiler (phases 4 and
+    13b): its wall and contig Mbp/s, launches (read from 0 just before the
+    run to just after it), stage seconds, ALIGN_STATS, torch's peak device
+    memory and nvidia-smi samples beside it; the full-width and traceback
+    kernels must run. Returns (run dir, VCF records, launches, DP class
+    table, contig Mbp/s)."""
     import torch
     from pav_tpu_torch.align.aligner import core
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
-
-    # 4. main path, 16 Mbp diploid
-    stamp('phase 4')
-    t0 = time.time()
-    ref, h1, h2, t1, t2 = bench_genome(BENCH_REF_LEN, 11)
-    genome = (ref, h1, h2)
-    log(f'genome: {len(ref) / 1e6:g} Mbp reference, haps {len(h1)} + {len(h2)} bp '
-        f'({time.time() - t0:.1f} s)')
-    haps = {'h1': ('tig_h1', h1), 'h2': ('tig_h2', h2)}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = smi_memory_used()
@@ -1624,33 +1404,52 @@ def drive_main_path(work, card, dev):
     chain_scan.launches_reset()
     affine_dp.stats_reset()
     core.align_stats_reset()
-    with gpu_samples(os.path.join(work, 'bench16_smi.csv')) as smi:
-        run_dir, wall = run_sample(work, 'bench16', ref, haps, DEVICE)
-    main_launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
-    # A copy of the counters: the traced run below adds to the same lists.
+    with gpu_samples(os.path.join(work, f'{name}_smi.csv')) as smi:
+        run_dir, wall = run_sample(work, name, ref, haps, DEVICE)
+    launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    # A copy of the counters: a later traced run adds to the same lists.
     classes = {k: tuple(v) for k, v in affine_dp.STATS['classes'].items()}
-    recs = vcf_records(os.path.join(run_dir, 'bench16.vcf.gz'))
-    rate = (len(h1) + len(h2)) / 1e6 / wall
-    log(f'main path {len(ref) / 1e6:g} Mbp diploid: {len(recs)} VCF records, wall {wall:.2f} s '
-        f'(no profiler), {rate:.3f} contig Mbp/s on {card}; launches {main_launches}')
-    log('stage seconds: ' + json.dumps(stage_seconds(run_dir, 'bench16')))
+    recs = vcf_records(os.path.join(run_dir, f'{name}.vcf.gz'))
+    rate = sum(len(codes) for _, codes in haps.values()) / 1e6 / wall
+    log(f'{name}, {len(ref) / 1e6:g} Mbp diploid: {len(recs)} VCF records, wall {wall:.2f} s '
+        f'(no profiler), {rate:.3f} contig Mbp/s on {card}; launches {launches}')
+    log('stage seconds: ' + json.dumps(stage_seconds(run_dir, name)))
     log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
         {k: round(v, 3) for k, v in core.ALIGN_STATS.items()}))
-    log(f'bench16 device memory: torch max_memory_allocated '
+    log(f'{name} device memory: torch max_memory_allocated '
         f'{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, max_memory_reserved '
         f'{torch.cuda.max_memory_reserved() / 2**20:.0f} MiB; {smi_note(smi, before)}; on {card}')
     if not recs:
-        fail('the 16 Mbp VCF has no records')
-    if main_launches['full'] <= 0 or main_launches['traceback'] <= 0:
-        fail(f'the main path did not launch the full/traceback kernels: {main_launches}')
-    hold_to_truth('bench16 VCF', os.path.join(run_dir, 'bench16.vcf.gz'), t1 + t2)
+        fail(f'the {name} VCF has no records')
+    if launches['full'] <= 0 or launches['traceback'] <= 0:
+        fail(f'{name} did not launch the full/traceback kernels: {launches}')
+    return run_dir, recs, launches, classes, rate
+
+
+def drive_main_path(work, card, dev):
+    """Phases 4-6; returns the kernel launches of phases 4 and 5 (each read
+    from 0 just before its run to just after it), phase 4's genome (ref,
+    h1, h2) and its contig Mbp/s (the CLI's wall)."""
+    from pav_tpu_torch import synth
+    from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
+
+    # 4. main path, 16 Mbp diploid
+    stamp('phase 4')
+    t0 = time.time()
+    ref, h1, h2, t1, t2 = synth.bench_genome(BENCH_REF_LEN, 11)
+    genome = (ref, h1, h2)
+    log(f'genome: {len(ref) / 1e6:g} Mbp reference, haps {len(h1)} + {len(h2)} bp '
+        f'({time.time() - t0:.1f} s)')
+    haps = {'h1': ('tig_h1', h1), 'h2': ('tig_h2', h2)}
+    run_dir, recs, main_launches, classes, rate = measured_run(work, 'bench16', ref, haps, card)
+    synth.hold_to_truth('bench16 VCF', os.path.join(run_dir, 'bench16.vcf.gz'), t1 + t2)
 
     # The same sample again under a CUDA-activity trace: device time by kernel.
     traced_run(work, 'bench16', ref, haps, recs, 'a second run')
 
     # 5. repeat-rich sample: the wavefront band kernel
     stamp('phase 5')
-    rref, rhap = repeat_genome(REPEAT_REF_LEN, 18)
+    rref, rhap = synth.repeat_genome(REPEAT_REF_LEN, 18)
     rhaps = {'h1': ('rtig1', rhap)}
     dp_kernels.launches_reset()
     chain_scan.launches_reset()
@@ -1677,7 +1476,7 @@ def drive_main_path(work, card, dev):
     stamp('phase 6')
     from pav_tpu_torch.io.fasta import SeqStore
     from pav_tpu_torch.pipeline import Pipeline
-    ref, h1, h2 = e2e_genome()
+    ref, h1, h2 = synth.e2e_genome()
     haps = {'h1': ('tig1_1', h1), 'h2': ('tig2_1', h2)}
     run_gpu, _ = run_sample(work, 'samp1', ref, haps, DEVICE,
                             ('--set', 'aligner_min_chain_score=500'))
@@ -1838,16 +1637,19 @@ def phase_entry(card, dev):
 def phase_chrom(work, card, dev):
     """11. bench.py's chromosome-scale sample (CHROM_REF_LEN, CHROM_SEED)
     from FASTA through the port's CLI on the card, in a child process
-    (run_cli_child), twice: the first run warms up, the second is measured
-    without a profiler (wall, stage seconds, launches, DP class table,
-    density paths, the child's peak RSS, nvidia-smi samples beside it). Both
-    runs write equal VCF records; the measured run's VCF is held to planted
-    truth. Returns the measured run's launches."""
+    (run_cli_child), twice: the first run warms up and times each walker
+    launch on the run's own tapes (--time-walks), the second is measured
+    without a profiler or that instrumentation (wall, stage seconds,
+    launches, DP class table, density paths, the child's peak RSS,
+    nvidia-smi samples beside it). Both runs write equal VCF records, so
+    the warm-up's tapes are the measured run's; the measured run's VCF is
+    held to planted truth. Returns the measured run's launches."""
     import torch
+    from pav_tpu_torch import synth
     d = os.path.join(work, 'chrom')
     os.makedirs(d)
     t0 = time.time()
-    ref, h1, h2, t1, t2 = bench_genome(CHROM_REF_LEN, CHROM_SEED)
+    ref, h1, h2, t1, t2 = synth.bench_genome(CHROM_REF_LEN, CHROM_SEED)
     t_gen = time.time() - t0
     t0 = time.time()
     name = f'chrom{CHROM_REF_LEN // 1_000_000}'
@@ -1867,9 +1669,10 @@ def phase_chrom(work, card, dev):
         return ['--ref', os.path.join(d, 'ref.fa'), '--assemblies', os.path.join(d, 'asm.tsv'),
                 '--run-dir', os.path.join(d, run_dir), '--device', DEVICE]
     torch.cuda.empty_cache()
-    warm, warm_wall, warm_rss = run_cli_child(d, argv('run_warm'), f'{name}_warm', 900)
-    log(f'{name} warm-up run: CLI wall {warm["wall"]:.2f} s ({warm_wall:.2f} s with the '
-        f'process start), peak RSS {warm_rss / 2**30:.2f} GiB')
+    warm, warm_wall, warm_rss = run_cli_child(d, argv('run_warm'), f'{name}_warm', 900,
+                                              time_walks=True)
+    log(f'{name} warm-up run (walker launches timed): CLI wall {warm["wall"]:.2f} s '
+        f'({warm_wall:.2f} s with the process start), peak RSS {warm_rss / 2**30:.2f} GiB')
     before = smi_memory_used()
     with gpu_samples(os.path.join(d, 'smi.csv')) as smi:
         st, proc_wall, rss = run_cli_child(d, argv('run'), name, 900)
@@ -1898,9 +1701,182 @@ def phase_chrom(work, card, dev):
         fail(f'{name}: the CLI child never initialised CUDA')
     log(f'{name} CLI child: torch max_memory_allocated {st["torch_memory"][0] / 2**20:.1f} MiB, '
         f'max_memory_reserved {st["torch_memory"][1] / 2**20:.1f} MiB (the whole CLI run)')
+    walks, walks_dev = warm['walk_ms'], warm['walk_device_ms']
+    if len(walks_dev) != warm['launches']['traceback'] or not walks_dev:
+        fail(f'{name}: {len(walks_dev)} timed walker calls for '
+             f'{warm["launches"]["traceback"]} launches in the warm-up run')
+    log(f'{name} walker on the run\'s own tapes (the warm-up run\'s, whose records equal the '
+        f'measured run\'s): {len(walks_dev)} launches, {sum(walks_dev):.4f} ms device time '
+        f'(each launch\'s tape walked again after the run, profiler; longest '
+        f'{max(walks_dev):.4f} ms); {sum(walks):.4f} ms between CUDA events around the '
+        f'launches in the run (longest {max(walks):.4f} ms: the host\'s time between the start '
+        f'event and the launch included); the class table below walks random tapes')
     dp_classes(name, st['classes'], dev, events=True)
-    hold_to_truth(f'{name} VCF', vcf, t1 + t2)
+    synth.hold_to_truth(f'{name} VCF', vcf, t1 + t2)
     return launches
+
+
+def launched_widths(label, classes):
+    """Fail unless the DP class table (affine_dp.STATS['classes'], keyed
+    (max_m, max_n, width, B_pad)) launched a full-width class at each of
+    synth.WIDE_WIDTHS; logs those classes."""
+    from pav_tpu_torch import synth
+    wide = {k: v[0] for k, v in classes.items() if k[2] == k[1] + 1 and k[2] > 4097}
+    log(f'{label} dp_full classes wider than 4097 (max_m, max_n, width, B_pad: launches): '
+        f'{sorted(wide.items())}')
+    missing = [w for w in synth.WIDE_WIDTHS
+               if not any(k[2] == w and n > 0 for k, n in wide.items())]
+    if missing:
+        fail(f'{label} launched no dp_full class of width {missing}: {sorted(classes)}')
+
+
+def size_bin(label, vcf, truth):
+    """Log the INS and DEL of >= synth.WIDE_MIN bp against planted truth
+    beside their floors; fail where the bin misses them."""
+    from pav_tpu_torch import synth
+    rep, misses = synth.truth_report(vcf, truth, min_len=synth.WIDE_MIN)
+    log(f'{label} SVs of >= {synth.WIDE_MIN} bp against planted truth (floors: recall 0.97, '
+        f'precision 0.95):\n{rep.to_string()}')
+    if misses:
+        fail(f'{label} misses the floors in its >= {synth.WIDE_MIN} bp bin: {"; ".join(misses)}')
+
+
+HOLD_WORKERS = 6   # hold_classes: processes for the plain versions
+
+
+def _plain_class(arrays, offs, ww, wave, tb, out):
+    """hold_classes' plain side, in a worker process on the CPU: the plain
+    DP (align_full_ref, or align_wave_ref on the band offsets ``offs``) on
+    ``arrays`` (q, r, m, n) and traceback_ref on its tape, against the
+    card's tape ``tb`` and walk ``out`` (numpy copies). Returns (tape equal,
+    walk equal, longest path, seconds)."""
+    import torch
+    from pav_tpu_torch.ops import dp_kernels as K
+    torch.set_num_threads(1)
+    t0 = time.time()
+    q, r, m, n = (torch.from_numpy(a) for a in arrays)
+    if wave:
+        offs = torch.from_numpy(offs)
+        tb_c = K.align_wave_ref(q, r, m, n, offs, ww, SCORING)
+    else:
+        tb_c, offs = K.align_full_ref(q, r, m, n, SCORING)
+    out_c = K.traceback_ref(tb_c, offs, q, r, m, n, wave)
+    return (torch.equal(torch.from_numpy(tb), tb_c), torch.equal(torch.from_numpy(out), out_c),
+            int(path_lengths(out_c).max()), time.time() - t0)
+
+
+def hold_classes(label, classes, dev):
+    """Each DP class of a sample's table (affine_dp.STATS['classes'], keyed
+    (max_m, max_n, width, B_pad)) at its own shape and batch: random inputs
+    (dp_inputs) through the class's kernel on the card (align_full, or
+    align_wave on the class's band geometry) and the walker on that tape,
+    each against its plain version on CPU copies of the same inputs, bit
+    for bit; the plain versions run in HOLD_WORKERS processes, one class a
+    task. Fails on any difference."""
+    import concurrent.futures
+    import multiprocessing
+    import torch
+    from pav_tpu_torch.ops import affine_dp, dp_kernels as K
+    t_all = time.time()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        HOLD_WORKERS, mp_context=multiprocessing.get_context('spawn'))
+    tasks = []
+    with pool:
+        for i, (mm, nn, width, b_pad) in enumerate(sorted(classes)):
+            arrays = dp_inputs(b_pad, mm, nn, 1300 + i)
+            q, r, m, n = (torch.from_numpy(a).to(dev) for a in arrays)
+            wave = width != nn + 1
+            if wave:
+                ww = affine_dp._wave_width(width)
+                offs = affine_dp._wave_geometry(m, n, mm, nn, mm + nn, ww)
+                tb = K.align_wave(q, r, m, n, offs, ww, SCORING)
+                what = (f'dp_wave B={b_pad} {mm}x{nn} width {width} ({ww} lanes, '
+                        f'{mm + nn} diagonals)')
+            else:
+                ww = None
+                tb, offs = K.align_full(q, r, m, n, SCORING)
+                what = f'dp_full B={b_pad} {mm}x{width}'
+            out = K.traceback(tb, offs, q, r, m, n, wave)
+            tasks.append((what, pool.submit(_plain_class, arrays, offs.cpu().numpy(), ww, wave,
+                                            tb.cpu().numpy(), out.cpu().numpy())))
+            del tb, offs, out
+        for what, task in tasks:
+            tape_ok, walk_ok, longest, secs = task.result()
+            if not tape_ok:
+                fail(f'{label}: {what} differs from its plain version')
+            if not walk_ok:
+                fail(f'{label}: the walker differs from traceback_ref on the {what} tape')
+            log(f'{label} class {what}: tape and walk bit-identical to the plain versions '
+                f'(longest path {longest} steps; plain {secs:.1f} s in a worker)')
+    log(f'{label}: {len(classes)} DP classes held to their plain versions at their own '
+        f'shapes ({time.time() - t_all:.1f} s, {HOLD_WORKERS} worker processes)')
+
+
+def phase_wide(work, card, dev):
+    """13. Kilobase SVs, whose DP segments take dp_full's wide path. 13a:
+    synth.WIDE_SMALL through the CLI on the card and through
+    Pipeline(device='cpu', ladder='accel') (the plain versions on the CUDA
+    path's classes): identical VCF records, both synth.WIDE_WIDTHS launched
+    on the card. 13b: wide16 (synth.WIDE16) measured as phase 4 is; both
+    widths and the walker must launch, its VCF records must equal pav_tpu's
+    (synth.WIDE16_REFERENCE), meet RECALL_FLOORS and, in the >= 2 kb bin,
+    the INS and DEL floors (13a's bin too); then again under a trace (equal
+    records; dp_full by launch grid, the walker on the run's own tapes),
+    its class table (dp_classes), and each of its classes held to the
+    plain versions at its own shape (hold_classes). Returns the launches of
+    the 13a and 13b card runs (each read from 0 just before to just after
+    it)."""
+    from pav_tpu_torch import synth
+    from pav_tpu_torch.io.fasta import SeqStore
+    from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
+    from pav_tpu_torch.pipeline import Pipeline
+
+    ref, h1, h2, t1, t2 = synth.wide_genome(*synth.WIDE_SMALL)
+    haps = {'h1': ('wtig1', h1), 'h2': ('wtig2', h2)}
+    dp_kernels.launches_reset()
+    chain_scan.launches_reset()
+    affine_dp.stats_reset()
+    run_gpu, wall = run_sample(work, 'wide13a', ref, haps, DEVICE)
+    launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    launched_widths('wide13a', affine_dp.STATS['classes'])
+    t0 = time.time()
+    cpu = Pipeline(SeqStore({'chr1': ref}), {}, run_dir=os.path.join(work, 'wide13a', 'run_cpu'),
+                   device='cpu', ladder='accel').run_sample(
+        'wide13a', {h: SeqStore(dict([tig])) for h, tig in haps.items()})
+    cpu_s = time.time() - t0
+    vcf = os.path.join(run_gpu, 'wide13a.vcf.gz')
+    gpu_recs = vcf_records(vcf)
+    cpu_recs = vcf_records(cpu['vcf'])
+    if not gpu_recs or gpu_recs != cpu_recs:
+        fail(f'wide13a: cuda and cpu (ladder=accel) VCFs differ ({len(gpu_recs)} vs '
+             f'{len(cpu_recs)} records)')
+    log(f'wide13a ({synth.WIDE_SMALL[0] / 1e3:g} kb reference, seed {synth.WIDE_SMALL[1]}): '
+        f'cuda and cpu (ladder=accel) VCFs identical ({len(gpu_recs)} records); CLI wall '
+        f'{wall:.2f} s on {card}, the CPU run {cpu_s:.1f} s; launches {launches}')
+    size_bin('wide13a', vcf, t1 + t2)
+
+    t0 = time.time()
+    ref, h1, h2, t1, t2 = synth.wide_genome(*synth.WIDE16)
+    svs = [t['len'] for t in t1 + t2 if t['type'] in ('INS', 'DEL') and t['len'] >= 50]
+    log(f'wide16: {len(ref) / 1e6:g} Mbp reference (seed {synth.WIDE16[1]}), haps {len(h1)} + '
+        f'{len(h2)} bp, {len(svs)} SVs, {sum(x >= synth.WIDE_MIN for x in svs)} of 2-10 kb, '
+        f'{sum(x > 8192 for x in svs)} above 8192 bp ({time.time() - t0:.1f} s)')
+    haps = {'h1': ('wtig_h1', h1), 'h2': ('wtig_h2', h2)}
+    run_dir, recs, wide_launches, classes, _ = measured_run(work, 'wide16', ref, haps, card)
+    launched_widths('wide16', classes)
+    vcf = os.path.join(run_dir, 'wide16.vcf.gz')
+    count, digest = synth.records_digest(vcf)
+    want = synth.WIDE16_REFERENCE
+    log(f'wide16 VCF records: {count}, sha256 {digest}; pav_tpu\'s on its accelerator '
+        f'branch (synth.WIDE16_REFERENCE): {want[0]}, sha256 {want[1]}')
+    if (count, digest) != want:
+        fail('wide16: the VCF records differ from pav_tpu\'s on its accelerator branch')
+    synth.hold_to_truth('wide16 VCF', vcf, t1 + t2)
+    size_bin('wide16', vcf, t1 + t2)
+    traced_run(work, 'wide16', ref, haps, recs, 'a second run')
+    dp_classes('wide16', classes, dev)
+    hold_classes('wide16', classes, dev)
+    return {k: launches[k] + wide_launches[k] for k in launches}
 
 
 def phase_bench(card, bench16_rate):
@@ -1983,10 +1959,11 @@ def phase_cohort(work, card, genome):
     walls and the samples-per-hour ratio; a profiled run runs its pools
     inline), then (c) the cohort again with per-process run and profile
     directories, whose traces must hold the kernels."""
+    from pav_tpu_torch import synth
     d = os.path.join(work, 'cohort')
     os.makedirs(d)
     ref, a1, a2 = genome
-    _, b1, b2, _, _ = bench_genome(len(ref), 11, hap_seeds=(14, 15))
+    _, b1, b2, _, _ = synth.bench_genome(len(ref), 11, hap_seeds=(14, 15))
     write_fasta(os.path.join(d, 'ref.fa'), {'chr1': ref})
     rows = ['NAME\tHAP_h1\tHAP_h2']
     for name, (x1, x2) in (('cohA', (a1, a2)), ('cohB', (b1, b2))):

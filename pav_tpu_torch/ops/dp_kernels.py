@@ -119,10 +119,9 @@ def align_full(q, r, m, n, sc):
 
 def _bits(*flags):
     """Pack 8 bool tensors (bit 0 first) into one uint8 tensor."""
-    out = flags[0].to(torch.int32)
-    for k, f in enumerate(flags[1:], start=1):
-        out = out | (f.to(torch.int32) << k)
-    return out.to(torch.uint8)
+    stacked = torch.stack(flags, dim=-1).to(torch.int32)
+    shifts = torch.arange(len(flags), dtype=torch.int32, device=stacked.device)
+    return (stacked << shifts).sum(dim=-1, dtype=torch.int32).to(torch.uint8)
 
 
 def _excl_prefix_max(a, negcol):
@@ -154,11 +153,18 @@ def align_full_ref(q, r, m, n, sc):
     rpad = torch.cat([torch.full((B, 1), 4, dtype=torch.int8, device=dev), r],
                      dim=1)[:, :width].to(i32)
     rb = torch.where((j >= 1) & (j <= ni), rpad, 4)
+    # The substitution score of every row's query code against the row of
+    # reference codes, code by code: sub_of[c][b] (code 4 never matches).
+    sub_of = torch.stack([torch.where(rb == c, match_t, mismatch_t) for c in range(4)]
+                         + [torch.full_like(rb, mismatch)])
+    in_n = j <= ni
     col0 = (j == 0)
+    je1, je2 = j * e1, j * e2
+    bidx = torch.arange(B, device=dev)
     tb = torch.empty((B, max_m, width), dtype=torch.uint8, device=dev)
 
     for i in range(1, max_m + 1):
-        valid = (j <= ni) & (i <= mi)
+        valid = in_n & (i <= mi)
         e1o = h - (o1 + e1)
         e1x = e1s - e1
         e1n = torch.maximum(e1o, e1x)
@@ -167,18 +173,17 @@ def align_full_ref(q, r, m, n, sc):
         e2n = torch.maximum(e2o, e2x)
         eb = torch.maximum(e1n, e2n)
 
-        qb = q[:, i - 1:i].to(i32)
-        sub = torch.where((qb == rb) & (qb < 4) & (rb < 4), match_t, mismatch_t)
+        sub = sub_of[q[:, i - 1].to(torch.int64).clamp(0, 4), bidx]
         hs = torch.cat([negcol, h[:, :-1]], dim=1)
-        diag = torch.where(j >= 1, hs + sub, NEG)
+        diag = torch.where(col0, NEG, hs + sub)
         ht = torch.maximum(diag, eb)
 
-        a1 = ht + j * e1
-        a2 = ht + j * e2
+        a1 = ht + je1
+        a2 = ht + je2
         run1 = _excl_prefix_max(a1, negcol)
         run2 = _excl_prefix_max(a2, negcol)
-        f1 = run1 - o1 - j * e1
-        f2 = run2 - o2 - j * e2
+        f1 = run1 - (o1 + je1)
+        f2 = run2 - (o2 + je2)
         op1 = col0 | (run1 == torch.cat([negcol, a1[:, :-1]], dim=1))
         op2 = col0 | (run2 == torch.cat([negcol, a2[:, :-1]], dim=1))
         fb = torch.maximum(f1, f2)
@@ -491,68 +496,80 @@ def traceback(tb, offs, q, r, m, n, wave):
     return out
 
 
+def _step_table(dev):
+    """The walker's step off the tape's edges as a table over (byte, state,
+    piece), key ``byte | state << 8 | piece << 10``: value ``act | new_piece
+    << 2 | new_state << 3`` (act 0 diagonal, 1 up, 2 left; states 0 H, 1
+    E, 2 F), the branches of the reference walker's step body."""
+    key = torch.arange(2048, dtype=torch.int64, device=dev)
+    byte, st, piece = key & 255, (key >> 8) & 3, key >> 10
+    act_h = torch.where((byte & 2) != 0, 2, torch.where((byte & 1) != 0, 1, 0))
+    act = torch.where(st == 0, act_h, st)
+    new_piece = torch.where(
+        (st == 0) & (act == 1), (byte >> 2) & 1,
+        torch.where((st == 0) & (act == 2), (byte >> 3) & 1, piece))
+    e_ext = torch.where(new_piece == 0, (byte >> 4) & 1, (byte >> 5) & 1)
+    f_open = torch.where(new_piece == 0, (byte >> 6) & 1, (byte >> 7) & 1)
+    new_st = torch.where(act == 0, 0, torch.where(act == 1, e_ext, 2 - 2 * f_open))
+    return act | (new_piece << 2) | (new_st << 3)
+
+
 def traceback_ref(tb, offs, q, r, m, n, wave):
     """Plain version of ``traceback``: the reference walker's step body,
-    batched over items, one loop iteration per step."""
+    batched over items, one loop iteration per step (the step's branches
+    on the tape byte, state and piece read from ``_step_table``; on the
+    tape's top row a walk goes left into state F, on its left column up
+    into state E)."""
     B, max_m = q.shape
     max_n = r.shape[1]
     w_dim = tb.shape[2]
     L = trace_len(max_m, max_n)
     dev = q.device
-    i32 = torch.int32
+    i32, i64 = torch.int32, torch.int64
     bidx = torch.arange(B, device=dev)
-    i = m.clone()
-    j = n.clone()
-    st = torch.zeros(B, dtype=i32, device=dev)
-    piece = torch.zeros(B, dtype=i32, device=dev)
+    table = _step_table(dev)
+    step_of_act = torch.tensor([STEP_X, STEP_I, STEP_D], dtype=torch.uint8, device=dev)
+    i = m.to(i64)
+    j = n.to(i64)
+    st = torch.zeros(B, dtype=i64, device=dev)
+    piece = torch.zeros(B, dtype=i64, device=dev)
     err = torch.zeros(B, dtype=torch.bool, device=dev)
-    codes = torch.empty((B, L), dtype=torch.uint8, device=dev)
+    codes = torch.full((B, L), STEP_DONE, dtype=torch.uint8, device=dev)
+    # Every step of a walk not yet done lowers i + j by at least one, so
+    # after max(m + n) steps every walk is done and later steps only write
+    # STEP_DONE: a wide class's tape (L up to 32772) is walked for its
+    # longest item, not for its padded width.
+    steps = min(L, int((m + n).max())) if B else 0
 
-    for s in range(L):
-        done = (i <= 0) & (j <= 0)
-        at_top = (i <= 0) & (j > 0)
-        at_left = (j <= 0) & (i > 0)
+    for s in range(steps):
+        top = i <= 0
+        left = j <= 0
+        done = top & left
+        at_top = top & ~left
+        at_left = left & ~top
         if wave:
-            row = (i + j - 1).clamp_min(0).to(torch.int64)
+            row = (i + j - 1).clamp_min(0)
             w = i - offs[bidx, row]
         else:
-            row = (i - 1).clamp_min(0).to(torch.int64)
+            row = (i - 1).clamp_min(0)
             w = j - offs[bidx, row]
         in_band = (w >= 0) & (w < w_dim)
-        byte = tb[bidx, row, w.clamp(0, w_dim - 1).to(torch.int64)].to(i32)
+        byte = tb[bidx, row, w.clamp(0, w_dim - 1)]
+        v = table[byte.to(i64) | (st << 8) | (piece << 10)]
+        act = torch.where(at_top, 2, torch.where(at_left, 1, v & 3))
+        new_st = torch.where(at_top, 2, torch.where(at_left, 1, v >> 3))
+        piece = (v >> 2) & 1
 
-        act_h = torch.where((byte & 2) != 0, 2, torch.where((byte & 1) != 0, 1, 0))
-        act = torch.where(st == 0, act_h, st)
-        new_piece = torch.where(
-            (st == 0) & (act == 1), (byte >> 2) & 1,
-            torch.where((st == 0) & (act == 2), (byte >> 3) & 1, piece))
-        act = torch.where(at_top, 2, torch.where(at_left, 1, act))
+        qb = q[bidx, (i - 1).clamp_min(0)]
+        rb = r[bidx, (j - 1).clamp_min(0)]
+        code = torch.where((act == 0) & (qb == rb) & (qb < 4), STEP_EQ, step_of_act[act])
+        codes[:, s] = torch.where(done, STEP_DONE, code)
+        err = err | (~top & ~left & ~in_band)
 
-        qb = q[bidx, (i - 1).clamp_min(0).to(torch.int64)].to(i32)
-        rb = r[bidx, (j - 1).clamp_min(0).to(torch.int64)].to(i32)
-        diag_code = torch.where((qb == rb) & (qb < 4) & (rb < 4), STEP_EQ, STEP_X)
-        e_ext = torch.where(new_piece == 0, (byte >> 4) & 1, (byte >> 5) & 1)
-        f_open = torch.where(new_piece == 0, (byte >> 6) & 1, (byte >> 7) & 1)
-        code = torch.where(act == 0, diag_code,
-                           torch.where(act == 1, STEP_I, STEP_D))
-        codes[:, s] = torch.where(done, STEP_DONE, code).to(torch.uint8)
-
-        di = ((act == 0) | (act == 1)).to(i32)
-        dj = ((act == 0) | (act == 2)).to(i32)
-        e_ext_eff = torch.where(at_left, 1, e_ext)
-        f_open_eff = torch.where(at_top, 0, f_open)
-        new_st = torch.where(
-            act == 0, 0,
-            torch.where(act == 1, torch.where(e_ext_eff == 1, 1, 0),
-                        torch.where(f_open_eff == 1, 0, 2)))
-        inside = ~done & ~at_top & ~at_left & ~in_band
-        err = err | (inside & (st == 0) & (act == 0))
-        err = err | inside
-
-        i = torch.where(done, i, i - di)
-        j = torch.where(done, j, j - dj)
-        st = torch.where(done, st, new_st).to(i32)
-        piece = new_piece.to(i32)
+        live = (~done).to(i64)
+        i = i - live * (act != 2)
+        j = j - live * (act != 1)
+        st = torch.where(done, st, new_st)
     err = err | (i > 0) | (j > 0)
 
     path_len = (codes != STEP_DONE).sum(dim=1).to(i32)

@@ -94,7 +94,7 @@ def test_find_chains_runs_on_the_aligner_device_without_native(monkeypatch):
     from pav_tpu_torch.align.aligner import Aligner
     from pav_tpu_torch.io.fasta import SeqStore
 
-    from helpers import random_seq
+    from pav_tpu_torch.synth import random_seq
     rng = np.random.default_rng(38)
     ref = random_seq(40000, rng)
     contig = ref[3000:33000].copy()
@@ -158,7 +158,7 @@ def test_find_chains_fallback_matches_native(monkeypatch):
     from pav_tpu_torch.align.aligner.index import MinimizerIndex
     from pav_tpu_torch.io.fasta import SeqStore
 
-    from helpers import random_seq
+    from pav_tpu_torch.synth import random_seq
     rng = np.random.default_rng(43)
     c1, c2 = random_seq(200000, rng), random_seq(120000, rng)
     contig = np.concatenate([c1[1000:31000], seqcodec.revcomp(c2[5000:25000]),

@@ -8,11 +8,13 @@ inversion). Held here:
 
 * the port's VCF meets the floors, on the CPU ladder and on the CUDA path's
   classes (``ladder='accel'``, the kernels' plain versions), judged by
-  chip_smoke.py's own ``truth_report`` (what phase 11 runs on the card),
+  ``pav_tpu_torch.synth.truth_report`` (what chip_smoke.py's phase 11 runs
+  on the card),
   which reads the VCF as tests/test_recall.py reads the merged tables;
 * the port's merged tables equal ``pav_tpu``'s, CPU ladder against the
   unforced reference;
-* chip_smoke.py's generator and truth table equal bench.py's and
+* the port's generator and truth table (``pav_tpu_torch.synth``, which
+  chip_smoke.py and bench_torch.py run) equal bench.py's and
   tests/test_recall.py's.
 """
 
@@ -24,10 +26,10 @@ import pandas as pd
 import pytest
 
 import bench
-import chip_smoke
 from pav_tpu.io.fasta import SeqStore as RefSeqStore
 from pav_tpu.pipeline import Pipeline as RefPipeline
 from pav_tpu_torch import eval as ev
+from pav_tpu_torch import synth
 from pav_tpu_torch.io.fasta import SeqStore
 from pav_tpu_torch.pipeline import Pipeline
 
@@ -69,7 +71,7 @@ def port_cpu(genome, tmp_path_factory):
 
 
 def test_genome_has_every_class(genome):
-    truth = chip_smoke.truth_to_df(genome[3]).drop_duplicates(
+    truth = synth.truth_to_df(genome[3]).drop_duplicates(
         subset=['POS', 'SVTYPE', 'SVLEN', 'ALT'])
     counts = truth['SVTYPE'].value_counts()
     assert counts['INV'] == 1
@@ -82,7 +84,7 @@ def test_port_meets_recall_floors(genome, port_cpu, tmp_path, ladder):
     the card's VCF; the report equals test_recall.py's concordance of the
     merged tables."""
     res = port_cpu if ladder == 'cpu' else _run_port(genome, tmp_path, 'accel')
-    rep, misses = chip_smoke.truth_report(res['vcf'], genome[3])
+    rep, misses = synth.truth_report(res['vcf'], genome[3])
     assert misses == [], rep
     truth = truth_to_df(genome[3]).drop_duplicates(subset=['POS', 'SVTYPE', 'SVLEN', 'ALT'])
     merged = ev.concordance(truth, calls_to_df(res['merged'])).set_index('SVTYPE')
@@ -107,7 +109,7 @@ def test_truth_report_finds_a_miss(genome, port_cpu, tmp_path):
     path = tmp_path / 'cut.vcf.gz'
     with gzip.open(path, 'wt') as fh:
         fh.writelines(kept)
-    rep, misses = chip_smoke.truth_report(str(path), genome[3])
+    rep, misses = synth.truth_report(str(path), genome[3])
     assert [m.split()[:2] for m in misses] == [['SNV', 'RECALL'], ['INV', 'RECALL']], rep
 
 
@@ -127,9 +129,9 @@ def test_merged_tables_equal_reference(genome, port_cpu):
 
 
 def test_chip_smoke_generator_equals_bench():
-    """chip_smoke.bench_genome, truth included, replays bench.py's
-    build_genome (tests/helpers.py's Mutator)."""
-    got = chip_smoke.bench_genome(REF_LEN, SEED)
+    """synth.bench_genome at its default SV spectrum, truth included,
+    replays bench.py's build_genome (tests/helpers.py's Mutator)."""
+    got = synth.bench_genome(REF_LEN, SEED)
     want = _build_genome(REF_LEN, SEED)
     for a, b in zip(got[:3], want[:3]):
         assert np.array_equal(a, b)
@@ -138,4 +140,4 @@ def test_chip_smoke_generator_equals_bench():
 
 
 def test_chip_smoke_truth_table_equals_test_recall(genome):
-    pd.testing.assert_frame_equal(chip_smoke.truth_to_df(genome[3]), truth_to_df(genome[3]))
+    pd.testing.assert_frame_equal(synth.truth_to_df(genome[3]), truth_to_df(genome[3]))
