@@ -6,6 +6,7 @@
     python3 chip_smoke.py --dp-full-times
     python3 chip_smoke.py --chrom
     python3 chip_smoke.py --wide
+    python3 chip_smoke.py --asm
 
 With ``--kernel-times`` it only times the DP kernels, the walker and the
 chain scan of the checkout it sits in (phase 3's inputs and device timing,
@@ -22,7 +23,8 @@ checkout's library can force it (``pav_traceback_whole_max``). Phase 3 of
 a full run takes its device times from such a fresh process.
 ``--dp-full-times`` prints the dp_full part alone as {"root", "card",
 "shapes": [...]}. ``--chrom`` runs phases 1, 2 and 11 alone, ``--wide``
-phases 1, 2 and 13; neither prints a result line. A copy of this file
+phases 1, 2 and 13, ``--asm`` phases 1, 2 and 14; none prints a result
+line. A copy of this file
 placed in another checkout (``git archive`` of a parent commit) times that
 checkout's kernels: run the two in one call, in turns (A, B, B, A), to
 compare two versions on one card.
@@ -112,7 +114,25 @@ Phases (each prints its lines; any failure exits nonzero):
      grid, the walker on the run's tapes), its DP class table, and each of
      its classes (dp_full at widths 8193 and 32769, dp_wave's 8192-row
      class) at its own shape and batch, kernel and walker against their
-     plain versions bit for bit.
+     plain versions bit for bit;
+ 14. assemblies shaped like users' (pav_tpu_torch.synth.asm_genome:
+     GRCh38's chr21 and chr22 lengths, each haplotype cut into contigs on
+     both strands, some overlapping, in shuffled FASTA order): (a)
+     asm_tiny (1/200 of the lengths) through the CLI on cuda and on the cpu
+     through ``Pipeline(ladder='accel')``: identical VCF records; asm10
+     (1/10) through the CLI on cuda: its records equal to pav_tpu's on its
+     accelerator branch (a digest from tests/test_torch_asm_reference.py,
+     synth.ASM10_REFERENCE), held to the recall floors; both runs must read
+     reverse-strand windows in the resident gather (flags 2 and 3), plan
+     more than one contig a haplotype, merge over 2 chromosome batches on
+     the sharded branch and trim the contigs' overlaps; (b) asm97 (full
+     length, 97.5 Mbp) through the CLI in a child process, measured as
+     phase 11's run is (wall, stage seconds, ALIGN_STATS by haplotype,
+     launches, DP class table, gather flags, density paths, peak RSS,
+     torch's peak allocation, nvidia-smi samples, contig count and NG50),
+     the same paths and the floors held. Where a floor is missed only
+     through records within 1 kb of a contig end, it is held on the rest
+     and the records set aside are counted (ROADMAP C12).
 The line before last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and no network;
 imports no jax.
@@ -178,6 +198,7 @@ CHROM_SEED = 28
 BENCH_ENV = {'PAV_BENCH_CHROM_MBP': '10', 'PAV_BENCH_MAX_ITERS': '2',
              'PAV_BENCH_TOTAL_S': '420'}
 BENCH_TIMEOUT = 480
+ASM_TIMEOUT = 600               # phase 14b: the asm97 CLI child's limit
 # What nvidia-smi samples beside a measured run, every SMI_PERIOD_MS.
 SMI_QUERY = 'memory.used,power.draw,clocks.sm,clocks.mem,utilization.gpu'
 SMI_PERIOD_MS = 200
@@ -855,23 +876,30 @@ def stage_seconds(run_dir, sample):
     return {f'{row.LABEL}:{row.STAGE}': float(row.SECONDS) for row in df.itertuples()}
 
 
-def run_sample(work, name, ref, haps, device, extra=()):
-    """Write FASTAs + assembly table under work/name and run the CLI."""
-    d = os.path.join(work, name)
+def write_sample(d, name, refs, haps):
+    """Write the reference {chrom: codes} as d/ref.fa, each haplotype's
+    {contig: codes} as d/<hap>.fa and sample ``name``'s assembly table as
+    d/asm.tsv; returns the CLI's --ref and --assemblies arguments."""
     os.makedirs(d, exist_ok=True)
-    write_fasta(os.path.join(d, 'ref.fa'), {'chr1': ref})
+    write_fasta(os.path.join(d, 'ref.fa'), refs)
     cols, paths = [], []
-    for hap, (tig, codes) in haps.items():
+    for hap, tigs in haps.items():
         path = os.path.join(d, f'{hap}.fa')
-        write_fasta(path, {tig: codes})
+        write_fasta(path, tigs)
         cols.append(f'HAP_{hap}')
         paths.append(path)
     with open(os.path.join(d, 'asm.tsv'), 'w') as fh:
         fh.write('NAME\t' + '\t'.join(cols) + '\n' + name + '\t' + '\t'.join(paths) + '\n')
+    return ['--ref', os.path.join(d, 'ref.fa'), '--assemblies', os.path.join(d, 'asm.tsv')]
+
+
+def run_sample(work, name, ref, haps, device, extra=()):
+    """Write FASTAs + assembly table under work/name (ref on chr1, one
+    contig a haplotype: {hap: (contig, codes)}) and run the CLI."""
+    d = os.path.join(work, name)
+    argv = write_sample(d, name, {'chr1': ref}, {hap: dict([tig]) for hap, tig in haps.items()})
     run_dir = os.path.join(d, f'run_{device}')
-    wall = run_cli(['--ref', os.path.join(d, 'ref.fa'), '--assemblies',
-                    os.path.join(d, 'asm.tsv'), '--run-dir', run_dir,
-                    '--device', device, *extra])
+    wall = run_cli([*argv, '--run-dir', run_dir, '--device', device, *extra])
     return run_dir, wall
 
 
@@ -1000,6 +1028,8 @@ def cli_child(stats_path, argv):
              'launches': dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan']),
              'classes': [[list(k), list(v)] for k, v in affine_dp.STATS['classes'].items()],
              'density': density, 'align_stats': dict(core.ALIGN_STATS),
+             'align_stats_by_hap': core.ALIGN_STATS_BY_HAP,
+             'gather_flags': affine_dp.STATS['gather_flags'],
              'walk_ms': [], 'walk_device_ms': []}
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -1014,6 +1044,14 @@ def cli_child(stats_path, argv):
     with open(stats_path, 'w') as fh:
         json.dump(stats, fh)
     return rc
+
+
+def log_align_by_hap(st):
+    """Log a CLI child's ALIGN_STATS_BY_HAP (cli_child's stats)."""
+    log('aligner host seconds by haplotype (ALIGN_STATS_BY_HAP; the planning of a '
+        'haplotype\'s contigs on the pool\'s threads summed): ' + json.dumps(
+            {hap: {k: round(v, 3) for k, v in sorted(secs.items())}
+             for hap, secs in sorted(st['align_stats_by_hap'].items())}))
 
 
 def run_cli_child(d, argv, label, timeout, time_walks=False):
@@ -1153,6 +1191,8 @@ def main():
                     help='run phases 1, 2 and 11 only (the chromosome-scale sample)')
     ap.add_argument('--wide', action='store_true',
                     help='run phases 1, 2 and 13 only (the kilobase-SV samples)')
+    ap.add_argument('--asm', action='store_true',
+                    help='run phases 1, 2 and 14 only (the assembly-shaped samples)')
     args = ap.parse_args()
     if not os.path.isfile(os.path.join(ROOT, 'pav_tpu_torch', 'ops', 'dp_kernels.py')):
         fail(f'no pav_tpu_torch package beside {__file__}: run from a checkout of the repo')
@@ -1188,7 +1228,7 @@ def main():
         if 'registers' in line or 'spill' in line:
             log(f'  ptxas: {line.strip()}')
 
-    if args.chrom or args.wide:
+    if args.chrom or args.wide or args.asm:
         with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
             if args.chrom:
                 stamp('phase 11')
@@ -1196,6 +1236,9 @@ def main():
             if args.wide:
                 stamp('phase 13')
                 phase_wide(work, card, dev)
+            if args.asm:
+                stamp('phase 14')
+                phase_asm(work, card, dev)
         stamp('done')
         return 0
 
@@ -1223,6 +1266,11 @@ def main():
     stamp('phase 13')
     with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
         for key, count in phase_wide(work, card, dev).items():
+            main_launches[key] += count
+    stamp('phase 14')
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
+        for key, count in phase_asm(work, card, dev).items():
             main_launches[key] += count
     stamp('done')
 
@@ -1412,7 +1460,8 @@ def measured_run(work, name, ref, haps, card):
     recs = vcf_records(os.path.join(run_dir, f'{name}.vcf.gz'))
     rate = sum(len(codes) for _, codes in haps.values()) / 1e6 / wall
     log(f'{name}, {len(ref) / 1e6:g} Mbp diploid: {len(recs)} VCF records, wall {wall:.2f} s '
-        f'(no profiler), {rate:.3f} contig Mbp/s on {card}; launches {launches}')
+        f'(no profiler), {rate:.3f} contig Mbp/s on {card}; launches {launches}; resident '
+        f'gather windows by flag 0-3 {affine_dp.STATS["gather_flags"]}')
     log('stage seconds: ' + json.dumps(stage_seconds(run_dir, name)))
     log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
         {k: round(v, 3) for k, v in core.ALIGN_STATS.items()}))
@@ -1631,6 +1680,21 @@ def phase_entry(card, dev):
     ibm = sum(item_bound(c[1] * c[3], OPS_BAND_CELL) for c in classes)
     log(f'entry points dp_band per-run bound: {bms:.6f} ms over {len(classes)} launches '
         f'{classes} (operations); one-item-per-SM bound {ibm:.5f} ms')
+    # The two card runs again under a CUDA-activity trace, for dp_band's
+    # device time (the launches above are the untraced runs').
+    with tempfile.TemporaryDirectory(prefix='pav_entry_trace_') as tdir:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            entry.dryrun_multichip(2, mesh=[dev, dev])
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(os.path.join(tdir, 'trace.json'))
+        shapes = trace_launch_shapes(os.path.join(tdir, 'trace.json'), NEEDLES['dp_band'])
+    for (kname, grid, block), (ms, count) in sorted(shapes.items()):
+        log(f'entry points trace {kname} grid {list(grid)} block {list(block)}: {count} '
+            f'launches, {ms:.4f} ms')
+    log(f'entry points dp_band under a CUDA-activity trace: '
+        f'{sum(c for _, c in shapes.values())} device launches, '
+        f'{sum(ms for ms, _ in shapes.values()):.4f} ms device time (bound {bms:.6f} ms)')
     return launches
 
 
@@ -1647,18 +1711,12 @@ def phase_chrom(work, card, dev):
     import torch
     from pav_tpu_torch import synth
     d = os.path.join(work, 'chrom')
-    os.makedirs(d)
     t0 = time.time()
     ref, h1, h2, t1, t2 = synth.bench_genome(CHROM_REF_LEN, CHROM_SEED)
     t_gen = time.time() - t0
     t0 = time.time()
     name = f'chrom{CHROM_REF_LEN // 1_000_000}'
-    write_fasta(os.path.join(d, 'ref.fa'), {'chr1': ref})
-    write_fasta(os.path.join(d, 'h1.fa'), {'tig_h1': h1})
-    write_fasta(os.path.join(d, 'h2.fa'), {'tig_h2': h2})
-    with open(os.path.join(d, 'asm.tsv'), 'w') as fh:
-        fh.write(f'NAME\tHAP_h1\tHAP_h2\n{name}\t{os.path.join(d, "h1.fa")}\t'
-                 f'{os.path.join(d, "h2.fa")}\n')
+    inputs = write_sample(d, name, {'chr1': ref}, {'h1': {'tig_h1': h1}, 'h2': {'tig_h2': h2}})
     mbp = (len(h1) + len(h2)) / 1e6
     log(f'{name}: {len(ref) / 1e6:g} Mbp reference (seed {CHROM_SEED}), haps {len(h1)} + '
         f'{len(h2)} bp = {mbp:.3f} contig Mbp, {len(t1)} + {len(t2)} planted events; generated '
@@ -1666,8 +1724,7 @@ def phase_chrom(work, card, dev):
     del ref, h1, h2
 
     def argv(run_dir):
-        return ['--ref', os.path.join(d, 'ref.fa'), '--assemblies', os.path.join(d, 'asm.tsv'),
-                '--run-dir', os.path.join(d, run_dir), '--device', DEVICE]
+        return [*inputs, '--run-dir', os.path.join(d, run_dir), '--device', DEVICE]
     torch.cuda.empty_cache()
     warm, warm_wall, warm_rss = run_cli_child(d, argv('run_warm'), f'{name}_warm', 900,
                                               time_walks=True)
@@ -1685,12 +1742,14 @@ def phase_chrom(work, card, dev):
     launches = st['launches']
     log(f'{name} diploid: {len(recs)} VCF records, equal in both runs; wall {st["wall"]:.2f} s '
         f'(the CLI\'s main, no profiler; {proc_wall:.2f} s with the process start), '
-        f'{mbp / st["wall"]:.3f} contig Mbp/s on {card}; launches {launches}')
+        f'{mbp / st["wall"]:.3f} contig Mbp/s on {card}; launches {launches}; resident gather '
+        f'windows by flag 0-3 {st["gather_flags"]}')
     if launches['full'] <= 0 or launches['traceback'] <= 0:
         fail(f'{name} did not launch the full/traceback kernels: {launches}')
     log('stage seconds: ' + json.dumps(stage_seconds(os.path.join(d, 'run'), name)))
     log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
         {k: round(v, 3) for k, v in st['align_stats'].items()}))
+    log_align_by_hap(st)
     log(f'{name} density paths (calls, largest grid): {st["density"]}')
     wide = sorted(k for k in st['classes'] if k[2] == k[1] + 1 and k[2] > 4097)
     log(f'{name} dp_wave launches: {launches["wave"]}; dp_full classes wider than 4097: '
@@ -1877,6 +1936,225 @@ def phase_wide(work, card, dev):
     dp_classes('wide16', classes, dev)
     hold_classes('wide16', classes, dev)
     return {k: launches[k] + wide_launches[k] for k in launches}
+
+
+class _Tee:
+    """A text stream that writes to ``stream`` and keeps a copy
+    (getvalue)."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def getvalue(self):
+        return ''.join(self.parts)
+
+
+def asm_card_run(work, name, sample):
+    """An asm_genome sample (synth) through the CLI on DEVICE in this
+    process, the pipeline's log (stderr) kept and its merge jobs on a
+    chromosome subset (the sharded branch) counted. Returns (run dir, wall,
+    launches, gather flags, log text, sharded merge jobs), the counts read
+    from 0 just before the run to just after it."""
+    from pav_tpu_torch import pipeline as port_pipeline
+    from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
+    ref, h1, h2 = sample[:3]
+    d = os.path.join(work, name)
+    argv = write_sample(d, name, ref, {'h1': h1, 'h2': h2})
+    run_dir = os.path.join(d, f'run_{DEVICE}')
+    sharded = []
+    merge = port_pipeline.merge_haplotypes
+
+    def counted(*args, subset_chrom=None, **kwargs):
+        if subset_chrom is not None:
+            sharded.append(tuple(sorted(subset_chrom)))
+        return merge(*args, subset_chrom=subset_chrom, **kwargs)
+    dp_kernels.launches_reset()
+    chain_scan.launches_reset()
+    affine_dp.stats_reset()
+    tee = _Tee(sys.stderr)
+    port_pipeline.merge_haplotypes = counted
+    try:
+        with contextlib.redirect_stderr(tee):
+            wall = run_cli([*argv, '--run-dir', run_dir, '--device', DEVICE])
+    finally:
+        port_pipeline.merge_haplotypes = merge
+    launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    return run_dir, wall, launches, affine_dp.STATS['gather_flags'], tee.getvalue(), sharded
+
+
+def asm_paths(label, run_dir, name, flags, log_text, sharded=None):
+    """Fail unless an asm_genome sample's run took the paths no earlier
+    sample reaches: the resident gather read reverse-strand windows (gather
+    flags 2 and 3), every haplotype planned more than one contig (the
+    aligner's planning pool), the merge ran over 2 chromosome batches and
+    took its sharded branch (``sharded``: the merge jobs counted on a
+    chromosome subset; None: inferred from calls on both chromosomes), and
+    trimming in reference space removed bases (the contigs' overlaps).
+    Logs each, with the bases trimmed in query space."""
+    import re
+    import pandas as pd
+    planned = dict(re.findall(r'\] (h[12]): aligning (\d+) contigs', log_text))
+    batches = re.findall(r'\((\d+) chromosome batches\)', log_text)
+    chroms = sorted({rec.split('\t')[0]
+                     for rec in vcf_records(os.path.join(run_dir, f'{name}.vcf.gz'))})
+    trims = {}
+    for hap in ('h1', 'h2'):
+        tier = {t: pd.read_csv(os.path.join(run_dir, name, hap, f'align_trim-{t}.tsv.gz'),
+                               sep='\t') for t in ('none', 'qry', 'qryref')}
+
+        def bases(t, lo, hi):
+            return int((tier[t][hi] - tier[t][lo]).sum())
+        trims[hap] = dict(records=[tier[t].shape[0] for t in ('none', 'qry', 'qryref')],
+                          contigs=int(tier['none']['QRY_ID'].nunique()),
+                          tig_bp=bases('none', 'QRY_POS', 'QRY_END') - bases('qry', 'QRY_POS',
+                                                                             'QRY_END'),
+                          ref_bp=bases('qry', 'POS', 'END') - bases('qryref', 'POS', 'END'))
+    how = (f'{len(sharded)} merge jobs on one chromosome batch' if sharded is not None
+           else f'calls on {chroms}, so each merge job with calls on both shards')
+    log(f'{label} paths: resident gather windows by flag 0-3 {tuple(flags)}; contigs planned '
+        f'{planned}; merge over {batches} chromosome batches, sharded ({how}); trimming '
+        f'(records none/qry/qryref, contigs aligned, query bp trimmed in tig mode, reference '
+        f'bp trimmed in ref mode): {trims}')
+    if not (flags[2] > 0 and flags[3] > 0):
+        fail(f'{label}: the resident gather read no reverse-strand window (flags 0-3 {flags})')
+    if sorted(planned) != ['h1', 'h2'] or min(int(n) for n in planned.values()) < 2:
+        fail(f'{label}: a haplotype planned fewer than 2 contigs: {planned}')
+    if batches != ['2']:
+        fail(f'{label}: the merge logged {batches} chromosome batches, not 2')
+    if (len(chroms) < 2) if sharded is None else not sharded:
+        fail(f'{label}: the merge never took its sharded branch ({how})')
+    if min(t['ref_bp'] for t in trims.values()) <= 0:
+        fail(f'{label}: trimming removed no overlap in reference space: {trims}')
+
+
+def phase_asm(work, card, dev):
+    """14. Assemblies shaped like users' (synth.asm_genome: GRCh38's chr21
+    and chr22 lengths, each haplotype in contigs on both strands, some
+    overlapping, in shuffled FASTA order). 14a: asm_tiny through the CLI on
+    the card and through Pipeline(device='cpu', ladder='accel'): identical
+    VCF records; asm10 through the CLI on the card: its records' digest
+    equal to pav_tpu's (synth.ASM10_REFERENCE), its VCF held to the floors;
+    both must take asm_paths' paths. 14b: asm97 (phase_asm97). Returns the
+    launches of the three card runs (each read from 0 just before to just
+    after it)."""
+    from pav_tpu_torch import synth
+    from pav_tpu_torch.io.fasta import SeqStore
+    from pav_tpu_torch.pipeline import Pipeline
+
+    stamp('phase 14a')
+    tiny = synth.asm_genome(*synth.ASM_TINY)
+    run_dir, wall, total, flags, text, sharded = asm_card_run(work, 'asm_tiny', tiny)
+    asm_paths('asm_tiny', run_dir, 'asm_tiny', flags, text, sharded)
+    t0 = time.time()
+    cpu = Pipeline(SeqStore(tiny[0]), {}, run_dir=os.path.join(work, 'asm_tiny', 'run_cpu'),
+                   device='cpu', ladder='accel').run_sample(
+        'asm_tiny', {'h1': SeqStore(tiny[1]), 'h2': SeqStore(tiny[2])})
+    cpu_s = time.time() - t0
+    gpu_recs = vcf_records(os.path.join(run_dir, 'asm_tiny.vcf.gz'))
+    cpu_recs = vcf_records(cpu['vcf'])
+    if not gpu_recs or gpu_recs != cpu_recs:
+        fail(f'asm_tiny: cuda and cpu (ladder=accel) VCFs differ ({len(gpu_recs)} vs '
+             f'{len(cpu_recs)} records)')
+    log(f'asm_tiny ({sum(len(c) for c in tiny[0].values())} bp reference, {len(tiny[1])} + '
+        f'{len(tiny[2])} contigs): cuda and cpu (ladder=accel) VCFs identical ({len(gpu_recs)} '
+        f'records); CLI wall {wall:.2f} s on {card}, the CPU run {cpu_s:.1f} s; launches {total}')
+
+    asm10 = synth.asm_genome(*synth.ASM10)
+    run_dir, wall, launches, flags, text, sharded = asm_card_run(work, 'asm10', asm10)
+    vcf = os.path.join(run_dir, 'asm10.vcf.gz')
+    count, digest = synth.records_digest(vcf)
+    want = synth.ASM10_REFERENCE
+    mbp = sum(len(c) for hap in asm10[1:3] for c in hap.values()) / 1e6
+    log(f'asm10 ({sum(len(c) for c in asm10[0].values())} bp reference, {len(asm10[1])} + '
+        f'{len(asm10[2])} contigs, {mbp:.3f} contig Mbp): CLI wall {wall:.2f} s '
+        f'({mbp / wall:.3f} contig Mbp/s) on {card}; launches {launches}; VCF records {count}, '
+        f'sha256 {digest}; pav_tpu\'s on its accelerator branch (synth.ASM10_REFERENCE): '
+        f'{want[0]}, sha256 {want[1]}')
+    if (count, digest) != want:
+        fail('asm10: the VCF records differ from pav_tpu\'s on its accelerator branch')
+    asm_paths('asm10', run_dir, 'asm10', flags, text, sharded)
+    synth.hold_to_truth('asm10 VCF', vcf, asm10[3] + asm10[4])
+    if launches['full'] <= 0 or launches['traceback'] <= 0:
+        fail(f'asm10 did not launch the full/traceback kernels: {launches}')
+    del tiny, asm10
+    stamp('phase 14b')
+    launches97 = phase_asm97(work, card, dev)
+    return {k: total[k] + launches[k] + launches97[k] for k in total}
+
+
+def phase_asm97(work, card, dev):
+    """14b. asm97 (synth.ASM97: GRCh38's chr21 and chr22 at full length)
+    from FASTA through the CLI on the card in a child process
+    (run_cli_child, no instrumentation), measured as phase 11's run is:
+    wall, stage seconds, ALIGN_STATS in all and by haplotype, launches, the
+    DP class table with each class timed alone, gather flags, density
+    paths, the child's peak RSS, torch's peak allocation, nvidia-smi
+    samples; the sample's contig count and NG50. The full-width and
+    traceback kernels must launch, the run must take asm_paths' paths and
+    its VCF meet the floors. Returns its launches."""
+    import torch
+    from pav_tpu_torch import asmstat, synth
+    d = os.path.join(work, 'asm97')
+    t0 = time.time()
+    ref, h1, h2, t1, t2, layout = synth.asm_genome(*synth.ASM97)
+    t_gen = time.time() - t0
+    t0 = time.time()
+    argv = write_sample(d, 'asm97', ref, {'h1': h1, 'h2': h2})
+    genome = sum(len(c) for c in ref.values())
+    mbp = sum(len(c) for hap in (h1, h2) for c in hap.values()) / 1e6
+    ng50 = {hap: asmstat.n50([len(c) for c in tigs.values()], genome)
+            for hap, tigs in (('h1', h1), ('h2', h2))}
+    shape = {hap: dict(contigs=len(tigs), reverse=sum(layout[t]['strand'] == '-' for t in tigs))
+             for hap, tigs in (('h1', h1), ('h2', h2))}
+    log(f'asm97: {genome} bp reference ({", ".join(f"{c} {len(s)}" for c, s in ref.items())}; '
+        f'seed {synth.ASM97[1]}), {mbp:.3f} contig Mbp in {len(h1)} + {len(h2)} contigs '
+        f'{shape}, contig NG50 (genome size the reference) {ng50}, {len(t1)} + {len(t2)} '
+        f'planted events; generated in {t_gen:.1f} s, FASTAs written in {time.time() - t0:.1f} s '
+        f'(outside the wall)')
+    del ref, h1, h2
+    torch.cuda.empty_cache()
+    run_dir = os.path.join(d, 'run')
+    before = smi_memory_used()
+    with gpu_samples(os.path.join(d, 'smi.csv')) as smi:
+        st, proc_wall, rss = run_cli_child(
+            d, [*argv, '--run-dir', run_dir, '--device', DEVICE], 'asm97', ASM_TIMEOUT)
+    vcf = os.path.join(run_dir, 'asm97.vcf.gz')
+    recs = vcf_records(vcf)
+    launches = st['launches']
+    log(f'asm97 diploid: {len(recs)} VCF records; wall {st["wall"]:.2f} s (the CLI\'s main, no '
+        f'profiler; {proc_wall:.2f} s with the process start), {mbp / st["wall"]:.3f} contig '
+        f'Mbp/s on {card}; launches {launches}; resident gather windows by flag 0-3 '
+        f'{st["gather_flags"]}')
+    if not recs:
+        fail('the asm97 VCF has no records')
+    if launches['full'] <= 0 or launches['traceback'] <= 0:
+        fail(f'asm97 did not launch the full/traceback kernels: {launches}')
+    log('stage seconds: ' + json.dumps(stage_seconds(run_dir, 'asm97')))
+    log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
+        {k: round(v, 3) for k, v in st['align_stats'].items()}))
+    log_align_by_hap(st)
+    log(f'asm97 density paths (calls, largest grid): {st["density"]}')
+    wide = sorted(k for k in st['classes'] if k[2] == k[1] + 1 and k[2] > 4097)
+    log(f'asm97 dp_wave launches: {launches["wave"]}; dp_full classes wider than 4097: '
+        f'{[(k, st["classes"][k][0]) for k in wide] or "none"}')
+    log(f'asm97 CLI child: peak RSS {rss / 2**30:.2f} GiB (os.wait4 ru_maxrss); '
+        f'{smi_note(smi, before)}; on {card}')
+    if st['torch_memory'] is None:
+        fail('asm97: the CLI child never initialised CUDA')
+    log(f'asm97 CLI child: torch max_memory_allocated {st["torch_memory"][0] / 2**20:.1f} MiB, '
+        f'max_memory_reserved {st["torch_memory"][1] / 2**20:.1f} MiB (the whole CLI run)')
+    with open(os.path.join(d, 'asm97.log')) as fh:
+        asm_paths('asm97', run_dir, 'asm97', st['gather_flags'], fh.read())
+    dp_classes('asm97', st['classes'], dev, events=True)
+    synth.hold_to_truth('asm97 VCF', vcf, t1 + t2)
+    return launches
 
 
 def phase_bench(card, bench16_rate):

@@ -44,15 +44,25 @@ from .index import MinimizerIndex
 _MIN_WIDTH = 65
 
 # Per-run align-stage phase accounting (seconds, summed across haps/threads;
-# reset via align_stats_reset).
+# reset via align_stats_reset). ALIGN_STATS_BY_HAP: the same, by the
+# ``hap`` of align_store, for the phases align_store times itself (all but
+# res_upload_s).
 ALIGN_STATS = {'plan_s': 0.0, 'resident_s': 0.0, 'dp_s': 0.0, 'emit_s': 0.0,
                'chains_s': 0.0, 'plan_chain_s': 0.0, 'select_s': 0.0,
                'res_prep_s': 0.0, 'res_upload_s': 0.0}
+ALIGN_STATS_BY_HAP = {}
 
 
 def align_stats_reset():
     for k in ALIGN_STATS:
         ALIGN_STATS[k] = 0.0
+    ALIGN_STATS_BY_HAP.clear()
+
+
+def _account(hap, key, secs):
+    ALIGN_STATS[key] += secs
+    mine = ALIGN_STATS_BY_HAP.setdefault(hap, {})
+    mine[key] = mine.get(key, 0.0) + secs
 _DIRECT_MISMATCH_FRAC = 0.05
 _BREAK_MIN_LEN = 400        # segments at least this long can break an alignment
 _BREAK_MISMATCH_FRAC = 0.30  # pre-DP: equal-length segment mismatch fraction
@@ -343,7 +353,7 @@ class Aligner:
                 codes, self.index, max_occ=self.max_occ,
                 max_dist=self.chain_max_dist, max_gap_diff=self.chain_max_gap,
                 min_chain_score=min_score, device=self.device)
-            ALIGN_STATS['chains_s'] += _time.time() - _t
+            _account(hap, 'chains_s', _time.time() - _t)
 
             oriented_cache = dict(prep) if prep else {}
 
@@ -355,13 +365,13 @@ class Aligner:
             # Pass 1: primary selection by original-frame query-span overlap.
             _t = _time.time()
             accepted, spans = self._select(chains, qlen, [])
-            ALIGN_STATS['select_s'] += _time.time() - _t
+            _account(hap, 'select_s', _time.time() - _t)
             _t = _time.time()
             metas = [
                 self._plan_chain(c, qry_name, qlen, oriented(c.is_rev), segments)
                 for c in accepted
             ]
-            ALIGN_STATS['plan_chain_s'] += _time.time() - _t
+            _account(hap, 'plan_chain_s', _time.time() - _t)
 
             # Coverage excluding break segments; pass 2 fills the gaps
             # (e.g. the inverted core of a bridged inversion).
@@ -371,12 +381,12 @@ class Aligner:
                 covered.extend(self._covered_spans(meta, segments, qlen))
             remaining = [c for c in chains if c not in accepted]
             accepted2, _ = self._select(remaining, qlen, covered)
-            ALIGN_STATS['select_s'] += _time.time() - _t
+            _account(hap, 'select_s', _time.time() - _t)
             _t = _time.time()
             for c in accepted2:
                 metas.append(self._plan_chain(
                     c, qry_name, qlen, oriented(c.is_rev), segments))
-            ALIGN_STATS['plan_chain_s'] += _time.time() - _t
+            _account(hap, 'plan_chain_s', _time.time() - _t)
 
             # Semi-global end extension: chains stop at their terminal anchors,
             # leaving anchor-free contig tails (e.g. SNV-dense divergence)
@@ -403,7 +413,7 @@ class Aligner:
                 codes = qry_store.get(name)
                 prepared[name] = {False: codes, True: seqcodec.revcomp(codes)}
                 arrays.append(codes)
-            ALIGN_STATS['res_prep_s'] += _time.time() - _t0
+            _account(hap, 'res_prep_s', _time.time() - _t0)
             resident, base_map = _build_resident_from(arrays, self.dp.devices)
             # Reverse-complement arrays are never uploaded: a window of the
             # rc contig maps onto the forward buffer with the gather's
@@ -411,7 +421,7 @@ class Aligner:
             for name in names:
                 fwd = prepared[name][False]
                 rc_map[id(prepared[name][True])] = (base_map[id(fwd)], len(fwd))
-            ALIGN_STATS['resident_s'] += _time.time() - _t0
+            _account(hap, 'resident_s', _time.time() - _t0)
 
         _t0 = _time.time()
         if len(names) > 1:
@@ -435,14 +445,14 @@ class Aligner:
                 ]
                 chain_meta.append(meta)
             segments.extend(segs)
-        ALIGN_STATS['plan_s'] += _time.time() - _t0
+        _account(hap, 'plan_s', _time.time() - _t0)
 
         _t0 = _time.time()
         self._run_segments(segments, resident, base_map, rc_map)
-        ALIGN_STATS['dp_s'] += _time.time() - _t0
+        _account(hap, 'dp_s', _time.time() - _t0)
         _t0 = _time.time()
         table = self._emit_table(chain_meta, segments, hap)
-        ALIGN_STATS['emit_s'] += _time.time() - _t0
+        _account(hap, 'emit_s', _time.time() - _t0)
         return table
 
     # -------------------------------------------------------------- selection

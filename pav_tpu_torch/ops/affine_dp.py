@@ -49,10 +49,13 @@ from . import dp_kernels
 # cells_real = sum_i m_i*min(n_i+1, width)  (what the problems need)
 # path_sum, path_max = sum and maximum of the items' traceback path lengths
 #   (the walker's steps; padding rows excluded)
+# gather_flags: the windows of resident launches (a real item's q and r
+#   window each) by gather flags 0-3 (_gather_resident: 1 reversed,
+#   2 complemented, 3 both)
 STATS = {'launches': 0, 'items': 0, 'h2d_bytes': 0, 'd2h_bytes': 0,
          'resolve_s': 0.0, 'dispatch_s': 0.0,
          'sharded_puts': 0, 'mesh_devices': 0, 'shard_rows': (),
-         'shard_cells': (), 'classes': {}}
+         'shard_cells': (), 'classes': {}, 'gather_flags': (0, 0, 0, 0)}
 _STATS_LOCK = threading.Lock()
 
 
@@ -61,6 +64,7 @@ def stats_reset():
         for k in STATS:
             STATS[k] = ({} if k == 'classes'
                         else () if k in ('shard_rows', 'shard_cells')
+                        else (0, 0, 0, 0) if k == 'gather_flags'
                         else (0.0 if k.endswith('_s') else 0))
 
 
@@ -324,11 +328,14 @@ class BandedAligner:
                 q, r, m, n = _gather_resident(resident[dev], desc, max_m, max_n)
                 fused.append(align_and_trace(q, r, m, n, max_m, width,
                                              self.scoring, band))
+        flags = np.bincount(arr[:B, [2, 5]].ravel(), minlength=4)
         with _STATS_LOCK:
             STATS['launches'] += 1
             STATS['items'] += B
             STATS['h2d_bytes'] += arr.nbytes
             STATS['dispatch_s'] += time.time() - t0
+            STATS['gather_flags'] = tuple(
+                int(a + b) for a, b in zip(STATS['gather_flags'], flags))
         cells_real = int(np.sum(
             arr[:B, 1].astype(np.int64)
             * np.minimum(arr[:B, 4].astype(np.int64) + 1, width)))

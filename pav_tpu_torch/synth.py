@@ -167,6 +167,39 @@ def wide_sv_len(rng):
     return int(rng.integers(WIDE_MIN, 10001))
 
 
+def plant_hap(ref, seed, with_inv, sv_len=bench_sv_len):
+    """bench.py's build_genome haplotype: its event mix and spacing planted
+    on ``ref`` from ``seed`` (one inversion where ``with_inv``). Returns
+    (haplotype codes, Mutator.truth)."""
+    ref_len = len(ref)
+    rng2 = np.random.default_rng(seed)
+    mut = Mutator(ref)
+    pos = 2000
+    inv_planted = False
+    while pos < ref_len - 20000:
+        r = rng2.random()
+        if r < 0.80:
+            mut.snv(pos, rng=rng2)
+        elif r < 0.95:
+            ln = int(rng2.integers(1, 25))
+            if rng2.random() < 0.5:
+                mut.ins(pos, random_seq(ln, rng2))
+            else:
+                mut.dele(pos, ln)
+        elif r < 0.985:
+            ln = sv_len(rng2)
+            if rng2.random() < 0.5:
+                mut.ins(pos, random_seq(ln, rng2))
+            else:
+                mut.dele(pos, ln)
+        else:
+            if with_inv and not inv_planted and pos < ref_len - 40000:
+                mut.inv(pos, int(rng2.integers(3000, 8000)))
+                inv_planted = True
+        pos = max(pos + int(rng2.integers(800, 1800)), mut.cursor + 200)
+    return mut.finish(), mut.truth
+
+
 def bench_genome(ref_len, seed, hap_seeds=None, sv_len=bench_sv_len):
     """The diploid sample of bench.py's build_genome (no cache): (ref, h1,
     h2, truth of h1, truth of h2), the truths as Mutator.truth lists;
@@ -176,36 +209,7 @@ def bench_genome(ref_len, seed, hap_seeds=None, sv_len=bench_sv_len):
     rng = np.random.default_rng(seed)
     ref = random_seq(ref_len, rng)
     s1, s2 = hap_seeds or (seed + 1, seed + 2)
-
-    def make_hap(seed2, with_inv):
-        rng2 = np.random.default_rng(seed2)
-        mut = Mutator(ref)
-        pos = 2000
-        inv_planted = False
-        while pos < ref_len - 20000:
-            r = rng2.random()
-            if r < 0.80:
-                mut.snv(pos, rng=rng2)
-            elif r < 0.95:
-                ln = int(rng2.integers(1, 25))
-                if rng2.random() < 0.5:
-                    mut.ins(pos, random_seq(ln, rng2))
-                else:
-                    mut.dele(pos, ln)
-            elif r < 0.985:
-                ln = sv_len(rng2)
-                if rng2.random() < 0.5:
-                    mut.ins(pos, random_seq(ln, rng2))
-                else:
-                    mut.dele(pos, ln)
-            else:
-                if with_inv and not inv_planted and pos < ref_len - 40000:
-                    mut.inv(pos, int(rng2.integers(3000, 8000)))
-                    inv_planted = True
-            pos = max(pos + int(rng2.integers(800, 1800)), mut.cursor + 200)
-        return mut.finish(), mut.truth
-
-    (h1, t1), (h2, t2) = make_hap(s1, False), make_hap(s2, True)
+    (h1, t1), (h2, t2) = plant_hap(ref, s1, False, sv_len), plant_hap(ref, s2, True, sv_len)
     return ref, h1, h2, t1, t2
 
 
@@ -232,6 +236,122 @@ WIDE_WIDTHS = (8193, 32769)
 # (``python tests/wide_reference.py``; tests/test_torch_wide16_reference.py
 # recomputes it): records_digest's (count, SHA-256).
 WIDE16_REFERENCE = (23640, '5036b778e70850ab0c38db657955940f9b13fa29f5665de668aeb91032bcf69f')
+
+
+# ------------------------------------------------ assembly-shaped samples
+
+# GRCh38's chr21 and chr22 (primary assembly, GenBank GCA_000001405.15;
+# UCSC hg38.chrom.sizes).
+GRCH38_CHR21_22 = (('chr21', 46_709_983), ('chr22', 50_818_468))
+# Fragmentation: each haplotype's copy of a chromosome is cut at 1-3
+# points (mean 2 a chromosome, about one cut per 24 Mbp), each contig at
+# least a tenth of its chromosome: a contig NG50 of roughly 20-35 Mbp at
+# full length, the order HiFi haplotype assemblies reach (the HPRC year-1
+# assemblies, Liao et al., Nature 2023, report contig NG50s of about 40
+# Mb). Stand-ins without a source: half of the cuts leave the two contigs
+# sharing 1-10 kb (uniform) of sequence, and a contig is reverse-complemented
+# with probability 0.5 (an assembler does not orient contigs to a
+# reference).
+ASM_CUTS = (1, 3)
+ASM_MIN_SHARE = 10          # a contig spans at least 1/ASM_MIN_SHARE of its chromosome
+ASM_OVERLAP_P = 0.5
+ASM_OVERLAP = (1000, 10000)
+
+
+def asm_lens(scale):
+    """GRCH38_CHR21_22 at 1/scale of their lengths (rounded)."""
+    return tuple((chrom, round(length / scale)) for chrom, length in GRCH38_CHR21_22)
+
+
+# asm_genome's samples, (chromosome lengths, seed). Each seed is the first
+# from 0 whose sample has, in each haplotype, a reverse-strand contig, an
+# overlapping pair of contigs and contig names out of reference order
+# (tests/test_torch_asm.py holds it): asm97 at full length (97,528,451 bp
+# of reference), asm10 at 1/10, asm_tiny at 1/200.
+ASM97 = (asm_lens(1), 0)
+ASM10 = (asm_lens(10), 0)
+ASM_TINY = (asm_lens(200), 0)
+
+# asm10's VCF records by pav_tpu on its accelerator branch, on the CPU
+# (``python tests/test_torch_asm_reference.py``, which recomputes it in
+# tier-1): records_digest's (count, SHA-256).
+ASM10_REFERENCE = (14700, '4cf8d495c6f271b1316a074abffbc8bbebd1a74d69d4e6234f28082f18ec8ca0')
+
+
+def asm_chrom(length, seed, index):
+    """Chromosome ``index`` of asm_genome(..., seed): bench_genome's
+    reference and haplotypes (bench.py's event mix and spacing, the
+    inversion on h2) at ``length``, from a seed of its own."""
+    return bench_genome(length, 10 * seed + 3 * index)
+
+
+def _cuts(truth, ref_len, rng):
+    """The cuts of one haplotype's copy of a chromosome, in order:
+    [((ref, hap) position of the cut, (ref, hap) position of the overlap
+    end or None)]. The right contig starts at the cut; the left one ends
+    there or, for an overlap, runs on to the overlap end. Every cut and
+    overlap end is the midpoint of a gap between planted events, never
+    inside one, where the two coordinates map exactly."""
+    spans = np.array([(t['pos'], t['pos'] + (t['len'] if t['type'] in ('DEL', 'INV') else 1))
+                      for t in truth], dtype=np.int64).reshape(-1, 2)
+    shift = np.cumsum([t['len'] if t['type'] == 'INS' else -t['len'] if t['type'] == 'DEL'
+                       else 0 for t in truth], dtype=np.int64)
+    mids = (spans[:-1, 1] + spans[1:, 0]) // 2
+    hmids = mids + shift[:-1]
+    least = -(-ref_len // ASM_MIN_SHARE)
+    k = int(rng.integers(ASM_CUTS[0], ASM_CUTS[1] + 1))
+    while True:
+        at = np.unique(np.searchsorted(mids, rng.integers(0, ref_len, k)).clip(0, len(mids) - 1))
+        edges = np.concatenate([[0], mids[at], [ref_len]])
+        if len(at) == k and np.diff(edges).min() >= least:
+            break
+    cuts = []
+    for i in at:
+        end = None
+        if rng.random() < ASM_OVERLAP_P:
+            target = hmids[i] + int(rng.integers(ASM_OVERLAP[0], ASM_OVERLAP[1] + 1))
+            room = np.nonzero((hmids - hmids[i] >= ASM_OVERLAP[0])
+                              & (hmids - hmids[i] <= ASM_OVERLAP[1]))[0]
+            j = room[np.argmin(np.abs(hmids[room] - target))]
+            end = (int(mids[j]), int(hmids[j]))
+        cuts.append(((int(mids[i]), int(hmids[i])), end))
+    return cuts
+
+
+def asm_genome(chrom_lens, seed):
+    """A diploid assembly shaped like a user's. Per (chromosome, length) of
+    ``chrom_lens``, asm_chrom's reference and two haplotypes; each
+    haplotype's copy is cut into contigs (_cuts, sources beside ASM_CUTS),
+    each contig reverse-complemented with probability 0.5, and a
+    haplotype's contigs are named ``<hap>_tig<k>`` in a shuffled order, so
+    FASTA order is not reference order. Returns (ref {chrom: codes}, h1
+    {contig: codes}, h2, truth of h1, truth of h2, layout): truth records
+    carry their ``chrom``; layout maps each contig to {hap, chrom, start,
+    end, strand, ref_start, ref_end}: its span on the haplotype's copy of
+    the chromosome (before any reverse complement) and the reference
+    positions of its two ends."""
+    rng = np.random.default_rng([seed, 1])
+    ref, truths, pieces = {}, ([], []), ([], [])
+    for index, (chrom, length) in enumerate(chrom_lens):
+        codes, h1, h2, t1, t2 = asm_chrom(length, seed, index)
+        ref[chrom] = codes
+        for h, (hap, truth) in enumerate(((h1, t1), (h2, t2))):
+            truths[h].extend(dict(t, chrom=chrom) for t in truth)
+            cuts = _cuts(truth, length, rng)
+            starts = [(0, 0)] + [cut for cut, _ in cuts]
+            ends = [end or cut for cut, end in cuts] + [(length, len(hap))]
+            for (r0, s0), (r1, s1) in zip(starts, ends):
+                strand = '-' if rng.random() < 0.5 else '+'
+                tig = hap[s0:s1] if strand == '+' else seqcodec.revcomp(hap[s0:s1])
+                pieces[h].append((tig, dict(chrom=chrom, start=s0, end=s1, strand=strand,
+                                            ref_start=r0, ref_end=r1)))
+    haps, layout = ({}, {}), {}
+    for h, hap in enumerate(('h1', 'h2')):
+        names = [f'{hap}_tig{k + 1}' for k in rng.permutation(len(pieces[h]))]
+        for name, (tig, where) in sorted(zip(names, pieces[h]), key=lambda x: x[0]):
+            haps[h][name] = tig
+            layout[name] = dict(where, hap=hap)
+    return ref, haps[0], haps[1], truths[0], truths[1], layout
 
 
 def records_digest(vcf_path):
@@ -296,18 +416,20 @@ def e2e_genome():
 # ------------------------------------------------------ planted truth
 
 def truth_to_df(truth, chrom='chr1'):
-    """Mutator truth records as a call table (tests/test_recall.py's)."""
+    """Mutator truth records as a call table (tests/test_recall.py's), each
+    on its record's ``chrom`` (asm_genome's), else on ``chrom``."""
     import pandas as pd
     rows = []
     for t in truth:
+        chrom_t = t.get('chrom', chrom)
         if t['type'] == 'SNV':
-            rows.append((chrom, t['pos'], t['pos'] + 1, 'SNV', 1, t['ref'], t['alt']))
+            rows.append((chrom_t, t['pos'], t['pos'] + 1, 'SNV', 1, t['ref'], t['alt']))
         elif t['type'] == 'INS':
-            rows.append((chrom, t['pos'], t['pos'] + 1, 'INS', t['len'], 'N', 'N'))
+            rows.append((chrom_t, t['pos'], t['pos'] + 1, 'INS', t['len'], 'N', 'N'))
         elif t['type'] == 'DEL':
-            rows.append((chrom, t['pos'], t['pos'] + t['len'], 'DEL', t['len'], 'N', 'N'))
+            rows.append((chrom_t, t['pos'], t['pos'] + t['len'], 'DEL', t['len'], 'N', 'N'))
         elif t['type'] == 'INV':
-            rows.append((chrom, t['pos'], t['pos'] + t['len'], 'INV', t['len'], 'N', 'N'))
+            rows.append((chrom_t, t['pos'], t['pos'] + t['len'], 'INV', t['len'], 'N', 'N'))
     df = pd.DataFrame(rows, columns=['#CHROM', 'POS', 'END', 'SVTYPE', 'SVLEN', 'REF', 'ALT'])
     df['ID'] = [f'truth{i}' for i in range(df.shape[0])]
     df['FILTER'] = 'PASS'
@@ -338,7 +460,7 @@ def truth_report(vcf_path, truth, min_len=None):
     ``min_len``, the INS and DEL of SVLEN >= min_len only (_size_bin),
     held to the INS and DEL floors."""
     from . import eval as ev
-    want = truth_to_df(truth).drop_duplicates(subset=['POS', 'SVTYPE', 'SVLEN', 'ALT'])
+    want = truth_to_df(truth).drop_duplicates(subset=['#CHROM', 'POS', 'SVTYPE', 'SVLEN', 'ALT'])
     calls = ev.read_vcf(vcf_path)
     if min_len is None:
         rep = ev.concordance(want, calls).set_index('SVTYPE')
