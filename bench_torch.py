@@ -32,8 +32,8 @@ finished secondary metric reprints the line with ``repeat_rich_mbp_s``, then
 ``chrom_scale_mbp_s`` and ``chrom_peak_rss_gb`` added. A child that fails or
 times out is reported on stderr with its return code, and the lines printed
 so far stand. Stderr carries the card (nvidia-smi name and power limit), the
-host's cores, per-stage seconds, ``affine_dp.STATS``, ``ALIGN_STATS``, the
-chain stats and the DP class table.
+host's cores, per-stage seconds, ``affine_dp.STATS``, the host spans'
+seconds by name (``pav_tpu_torch.spans``) and the DP class table.
 
 ``mfu`` is the DP kernels' share of the card's int32 rate while they run:
 the int32 operations of the run's DP classes, counted on the plain
@@ -92,13 +92,11 @@ def prefault(env_key):
 
 
 def reset_stats():
-    from pav_tpu_torch.align.aligner import chain as chain_mod
     from pav_tpu_torch.align.aligner.core import align_stats_reset
     from pav_tpu_torch.ops import affine_dp, dp_kernels
     affine_dp.stats_reset()
     dp_kernels.launches_reset()
     align_stats_reset()
-    chain_mod.chain_stats_reset()
 
 
 def stage_totals(timings):
@@ -188,10 +186,9 @@ def repeat_sample():
 def repeat_child(dev):
     """--repeat-child: bench.py's repeat-rich sample at REF_MBP/2, an
     untimed pass, then a timed one."""
+    from pav_tpu_torch import spans
     from pav_tpu_torch.io.fasta import SeqStore
     from pav_tpu_torch.pipeline import Pipeline
-    from pav_tpu_torch.align.aligner import chain as chain_mod
-    from pav_tpu_torch.align.aligner.core import ALIGN_STATS
     prefault('PAV_BENCH_REPEAT_PREFAULT_GB')
     rref, rhap = repeat_sample()
 
@@ -207,8 +204,8 @@ def repeat_child(dev):
     print(f'REPLAUNCHES {json.dumps(launches())}', flush=True)
     for stage, secs in stage_totals(pipe.timings).items():
         print(f'REPSTAGE {stage} {secs:.3f}', flush=True)
-    for key, secs in {**ALIGN_STATS, **chain_mod.CHAIN_STATS}.items():
-        print(f'REPSTAGE align.{key} {secs:.3f}', flush=True)
+    for name, secs in spans.seconds_by_name(pipe.spans.records).items():
+        print(f'REPSTAGE span.{name} {secs:.3f}', flush=True)
     return 0
 
 
@@ -217,10 +214,9 @@ def chrom_child(dev):
     warm pass and a timed pass; the faster pass is reported, as bench.py
     keeps the best of its passes."""
     import torch
+    from pav_tpu_torch import spans
     from pav_tpu_torch.io.fasta import SeqStore
     from pav_tpu_torch.pipeline import Pipeline
-    from pav_tpu_torch.align.aligner import chain as chain_mod
-    from pav_tpu_torch.align.aligner.core import ALIGN_STATS
     chrom_mbp = float(os.environ.get('PAV_BENCH_CHROM_MBP', 100))
     prefault('PAV_BENCH_CHROM_PREFAULT_GB')
     ref, h1, h2, _, _ = synth.bench_genome(int(chrom_mbp * 1e6), SEED + 17)
@@ -232,8 +228,8 @@ def chrom_child(dev):
         t0 = time.time()
         pipe.run_sample('bench_chrom', {'h1': SeqStore({'c1': h1}), 'h2': SeqStore({'c2': h2})},
                         write_vcf=False)
-        return (time.time() - t0, pipe, launches(), dict(ALIGN_STATS),
-                dict(chain_mod.CHAIN_STATS))
+        return (time.time() - t0, pipe, launches(),
+                spans.seconds_by_name(pipe.spans.records))
     warm = one_pass()
     if dev.type == 'cuda':
         torch.cuda.reset_peak_memory_stats(dev)
@@ -249,8 +245,8 @@ def chrom_child(dev):
     print(f'CHROMLAUNCHES {json.dumps(timed[2])}', flush=True)
     for stage, secs in stage_totals(best[1].timings).items():
         print(f'CHROMSTAGE {stage} {secs:.3f}', flush=True)
-    for key, secs in {**best[3], **best[4]}.items():
-        print(f'CHROMSTAGE align.{key} {secs:.3f}', flush=True)
+    for name, secs in best[3].items():
+        print(f'CHROMSTAGE span.{name} {secs:.3f}', flush=True)
     return 0
 
 
@@ -330,14 +326,13 @@ def run_chrom(device):
 # ---------------------------------------------------------------- headline
 
 def headline(dev, work):
-    """The best of N timed iterations; (seconds, timings, DP stats, ALIGN_STATS,
-    CHAIN_STATS, launches, VCF path, truth) of the best."""
+    """The best of N timed iterations; (seconds, timings, DP stats, host span
+    seconds by name, launches, VCF path, truth) of the best."""
     import torch
     from pav_tpu_torch.io.fasta import SeqStore
     from pav_tpu_torch.pipeline import Pipeline
+    from pav_tpu_torch import spans
     from pav_tpu_torch.ops import affine_dp
-    from pav_tpu_torch.align.aligner import chain as chain_mod
-    from pav_tpu_torch.align.aligner.core import ALIGN_STATS
 
     prefault('PAV_BENCH_PREFAULT_GB')
     ref, h1, h2, t1, t2 = synth.bench_genome(int(REF_MBP * 1e6), SEED)
@@ -372,11 +367,11 @@ def headline(dev, work):
         prev_best = best[0] if best is not None else None
         if best is None or it_s < best[0]:
             if best is not None:
-                shutil.rmtree(os.path.dirname(best[6]), ignore_errors=True)
+                shutil.rmtree(os.path.dirname(best[5]), ignore_errors=True)
             best = (it_s, dict(pipeline.timings),
                     {k: (dict(v) if isinstance(v, dict) else v)
                      for k, v in affine_dp.STATS.items()},
-                    dict(ALIGN_STATS), dict(chain_mod.CHAIN_STATS), launches(),
+                    spans.seconds_by_name(pipeline.spans.records), launches(),
                     result['vcf'])
         else:
             shutil.rmtree(run_dir, ignore_errors=True)
@@ -403,7 +398,7 @@ def main():
         f'host {os.cpu_count()} cores; torch {torch.__version__} (CUDA {torch.version.cuda}); '
         f'python {sys.version.split()[0]}')
     with tempfile.TemporaryDirectory(prefix='pav_bench_torch_') as work:
-        (elapsed, timings, st, align_stats, chain_stats, n_launch, vcf, truth,
+        (elapsed, timings, st, span_secs, n_launch, vcf, truth,
          contig_mbp) = headline(dev, work)
         say(f'backend={dev.type} elapsed={elapsed:.4f}s breakdown (summed over haps):')
         for stage, secs in stage_totals(timings).items():
@@ -413,20 +408,19 @@ def main():
             f'dispatch {st["dispatch_s"]:.2f}s, resolve-wait {st["resolve_s"]:.2f}s; '
             f'kernel launches {json.dumps(n_launch)}')
         mfu = report_dp_mfu(st['classes'], dev)
-        say('align phases: ' + '  '.join(f'{k}={v:.2f}s' for k, v in align_stats.items()))
-        say('chain phases: ' + '  '.join(f'{k}={v:.2f}s' for k, v in chain_stats.items()))
+        say('host spans: ' + '  '.join(f'{k}={v:.2f}s' for k, v in span_secs.items()))
         if dev.type == 'cuda' and (n_launch['full'] <= 0 or n_launch['traceback'] <= 0):
             say(f'the headline run launched no dp_full or walker kernel: {n_launch}')
             return 1
         with contextlib.redirect_stdout(sys.stderr):
             synth.hold_to_truth('headline VCF', vcf, truth)
 
-    value = contig_mbp / elapsed
+    value = round(contig_mbp / elapsed, 4)   # the ratio below is of the value printed
     peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     say(f'peak RSS {peak_rss_gb:.2f} GB at {REF_MBP:g} Mbp reference')
     out = {
         'metric': 'contig_mbp_aligned_called_per_s',
-        'value': round(value, 4),
+        'value': value,
         'unit': 'Mbp/s',
         'vs_baseline': round(value / BASELINE_MBP_S, 3),
         'mfu': None if mfu is None else round(mfu, 4),

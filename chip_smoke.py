@@ -2234,8 +2234,8 @@ def _wait_all(procs, timeout):
 def phase_cohort(work, card, genome):
     """Two 16 Mbp diploid samples on one reference: (a) one CLI process,
     (b) a 2-process cohort on the one card, both without a profiler (the
-    walls and the samples-per-hour ratio; a profiled run runs its pools
-    inline), then (c) the cohort again with per-process run and profile
+    walls and the samples-per-hour ratio), then (c) the cohort again with
+    per-process run and profile
     directories, whose traces must hold the kernels."""
     from pav_tpu_torch import synth
     d = os.path.join(work, 'cohort')

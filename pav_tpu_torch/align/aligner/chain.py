@@ -11,33 +11,11 @@ Copy of pav_tpu.align.aligner.chain with its chain DP import switched to the
 torch port (the reference module imports a jax scan).
 """
 
-import time as _time
-
 import numpy as np
 
+from ... import spans
 from ...ops.chain_scan import chain_scores
-from .index import minimizers_parallel
-
-# Thread-time accumulators for the planning sub-phases (diagnostics only;
-# summed across contig threads, so totals can exceed wall time). Guarded by a
-# lock: the += read-modify-write is not atomic and updates from concurrent
-# planning/pool threads would otherwise be lost (under-counted phase times).
-import threading as _threading
-
-CHAIN_STATS = {'minimizers_s': 0.0, 'anchors_s': 0.0, 'sort_s': 0.0,
-               'dp_s': 0.0, 'extract_s': 0.0}
-_STATS_LOCK = _threading.Lock()
-
-
-def _stat_add(key, secs):
-    with _STATS_LOCK:
-        CHAIN_STATS[key] += secs
-
-
-def chain_stats_reset():
-    with _STATS_LOCK:
-        for key in CHAIN_STATS:
-            CHAIN_STATS[key] = 0.0
+from .index import SKETCH_POOL, minimizers_parallel
 
 
 class Chain:
@@ -66,9 +44,8 @@ def collect_anchors(qry_codes, index, max_occ=64):
         reverse hits so chains ascend in both coordinates.
     """
     k, w = index.k, index.w
-    _t = _time.time()
-    qpos, qhash, qstrand = minimizers_parallel(qry_codes, k, w)
-    _stat_add('minimizers_s', _time.time() - _t)
+    with spans.span('chain.minimizers'):
+        qpos, qhash, qstrand = minimizers_parallel(qry_codes, k, w)
     qlen = len(qry_codes)
 
     hi = getattr(index, '_hash_index', None)
@@ -87,10 +64,9 @@ def collect_anchors(qry_codes, index, max_occ=64):
 
         nq = len(qhash)
         if nq > 262144:
-            from .index import _pool
             step = (nq + 3) // 4
             slices = [slice(i, min(i + step, nq)) for i in range(0, nq, step)]
-            parts = list(_pool().map(probe, slices))
+            parts = list(SKETCH_POOL.map(probe, slices))
             return tuple(np.concatenate([p[i] for p in parts])
                          for i in range(4))
         return probe(slice(None))
@@ -181,46 +157,41 @@ def find_chains(qry_codes, index, max_occ=64, lookback=64, max_dist=50000,
         runs a two-pass original-frame selection).
     """
     k = index.k
-    _t = _time.time()
-    qpos, rpos, chrom, rev = collect_anchors(qry_codes, index, max_occ)
-    _stat_add('anchors_s', _time.time() - _t)
+    with spans.span('chain.anchors'):
+        qpos, rpos, chrom, rev = collect_anchors(qry_codes, index, max_occ)
     n = len(qpos)
     if n == 0:
         return []
 
     from ... import native
-    _t = _time.time()
-    res = native.sort_anchors(qpos, rpos, chrom, rev.astype(np.uint8))
-    if res is not None:
-        qpos, rpos, group, chrom, rev = res
-    else:
-        group = chrom.astype(np.int64) * 2 + rev.astype(np.int64)
-        if (group.max() < (1 << 7) and rpos.max() < (1 << 28)
-                and qpos.max() < (1 << 28)):
-            # Composite u64 key: one argsort instead of three lexsort passes.
-            key = ((group.astype(np.uint64) << np.uint64(56))
-                   | (rpos.astype(np.uint64) << np.uint64(28))
-                   | qpos.astype(np.uint64))
-            order = np.argsort(key, kind='stable')
+    with spans.span('chain.sort'):
+        res = native.sort_anchors(qpos, rpos, chrom, rev.astype(np.uint8))
+        if res is not None:
+            qpos, rpos, group, chrom, rev = res
         else:
-            order = np.lexsort((qpos, rpos, group))
-        qpos, rpos, group, rev = (qpos[order], rpos[order], group[order],
-                                  rev[order])
-        chrom = chrom[order]
-    _stat_add('sort_s', _time.time() - _t)
+            group = chrom.astype(np.int64) * 2 + rev.astype(np.int64)
+            if (group.max() < (1 << 7) and rpos.max() < (1 << 28)
+                    and qpos.max() < (1 << 28)):
+                # Composite u64 key: one argsort instead of three lexsort passes.
+                key = ((group.astype(np.uint64) << np.uint64(56))
+                       | (rpos.astype(np.uint64) << np.uint64(28))
+                       | qpos.astype(np.uint64))
+                order = np.argsort(key, kind='stable')
+            else:
+                order = np.lexsort((qpos, rpos, group))
+            qpos, rpos, group, rev = (qpos[order], rpos[order], group[order],
+                                      rev[order])
+            chrom = chrom[order]
 
     def chain_slab(lo, hi):
         """Chain DP + extraction over sorted anchors [lo, hi)."""
-        _t1 = _time.time()
-        scores, parents = chain_scores(
-            qpos[lo:hi], rpos[lo:hi], group[lo:hi], k, lookback=lookback,
-            max_dist=max_dist, max_gap_diff=max_gap_diff, device=device)
-        _stat_add('dp_s', _time.time() - _t1)
-        _t1 = _time.time()
-        out = _extract_chains(scores, parents, qpos, rpos, chrom, rev, lo,
-                              min_chain_score, min_anchors)
-        _stat_add('extract_s', _time.time() - _t1)
-        return out
+        with spans.span('chain.dp', anchors=hi - lo):
+            scores, parents = chain_scores(
+                qpos[lo:hi], rpos[lo:hi], group[lo:hi], k, lookback=lookback,
+                max_dist=max_dist, max_gap_diff=max_gap_diff, device=device)
+        with spans.span('chain.extract'):
+            return _extract_chains(scores, parents, qpos, rpos, chrom, rev, lo,
+                                   min_chain_score, min_anchors)
 
     # Chaining cannot cross a group change or an rpos gap > max_dist (rpos is
     # ascending within a group, so every pair spanning the gap fails the
@@ -242,9 +213,8 @@ def find_chains(qry_codes, index, max_occ=64, lookback=64, max_dist=50000,
                 acc = 0
         if job_bounds[-1] != n:
             job_bounds.append(n)
-        from .index import _pool
-        parts = list(_pool().map(lambda b: chain_slab(*b),
-                                 zip(job_bounds[:-1], job_bounds[1:])))
+        parts = list(SKETCH_POOL.map(lambda b: chain_slab(*b),
+                                     zip(job_bounds[:-1], job_bounds[1:])))
         chains = [c for part in parts for c in part]
     else:
         chains = chain_slab(0, n)

@@ -28,12 +28,13 @@ CUDA path's classes on the plain kernel versions.
 """
 
 import collections
+import threading
 
 import numpy as np
 import pandas as pd
 import torch
 
-from ... import seqcodec
+from ... import seqcodec, spans
 from ...align import cigar as cg
 from ...align.table import ALIGN_COLUMNS, empty_align_table, sort_align_table
 
@@ -43,26 +44,27 @@ from .index import MinimizerIndex
 
 _MIN_WIDTH = 65
 
-# Per-run align-stage phase accounting (seconds, summed across haps/threads;
-# reset via align_stats_reset). ALIGN_STATS_BY_HAP: the same, by the
-# ``hap`` of align_store, for the phases align_store times itself (all but
-# res_upload_s).
-ALIGN_STATS = {'plan_s': 0.0, 'resident_s': 0.0, 'dp_s': 0.0, 'emit_s': 0.0,
-               'chains_s': 0.0, 'plan_chain_s': 0.0, 'select_s': 0.0,
-               'res_prep_s': 0.0, 'res_upload_s': 0.0}
+# The planning pool's wall, summed over runs (reset via align_stats_reset),
+# in all and by the ``hap`` of align_store: the ``align.plan`` span's
+# duration. Every other phase of align_store is a span (``spans``).
+ALIGN_STATS = {'plan_s': 0.0}
 ALIGN_STATS_BY_HAP = {}
+_STATS_LOCK = threading.Lock()
 
 
 def align_stats_reset():
-    for k in ALIGN_STATS:
-        ALIGN_STATS[k] = 0.0
-    ALIGN_STATS_BY_HAP.clear()
+    with _STATS_LOCK:
+        ALIGN_STATS['plan_s'] = 0.0
+        ALIGN_STATS_BY_HAP.clear()
 
 
-def _account(hap, key, secs):
-    ALIGN_STATS[key] += secs
-    mine = ALIGN_STATS_BY_HAP.setdefault(hap, {})
-    mine[key] = mine.get(key, 0.0) + secs
+def _account_plan(hap, secs):
+    with _STATS_LOCK:
+        ALIGN_STATS['plan_s'] += secs
+        mine = ALIGN_STATS_BY_HAP.setdefault(hap, {})
+        mine['plan_s'] = mine.get('plan_s', 0.0) + secs
+
+
 _DIRECT_MISMATCH_FRAC = 0.05
 _BREAK_MIN_LEN = 400        # segments at least this long can break an alignment
 _BREAK_MISMATCH_FRAC = 0.30  # pre-DP: equal-length segment mismatch fraction
@@ -342,18 +344,18 @@ class Aligner:
         min_score = self.min_chain_score if min_chain_score is None else min_chain_score
 
         def plan_contig(qry_name):
-            """Seed/chain/select/plan one contig into its own segment list."""
-            import time as _time
+            """Seed/chain/select/plan one contig into its own segment list
+            (a task of the planning pool: an ``align.plan_contig`` span)."""
             prep = prepared.get(qry_name)
             codes = prep[False] if prep else qry_store.get(qry_name)
             qlen = len(codes)
+            spans.add(bases=qlen)
             segments = []
-            _t = _time.time()
-            chains = find_chains(
-                codes, self.index, max_occ=self.max_occ,
-                max_dist=self.chain_max_dist, max_gap_diff=self.chain_max_gap,
-                min_chain_score=min_score, device=self.device)
-            _account(hap, 'chains_s', _time.time() - _t)
+            with spans.span('align.chains'):
+                chains = find_chains(
+                    codes, self.index, max_occ=self.max_occ,
+                    max_dist=self.chain_max_dist, max_gap_diff=self.chain_max_gap,
+                    min_chain_score=min_score, device=self.device)
 
             oriented_cache = dict(prep) if prep else {}
 
@@ -363,40 +365,36 @@ class Aligner:
                 return oriented_cache[is_rev]
 
             # Pass 1: primary selection by original-frame query-span overlap.
-            _t = _time.time()
-            accepted, spans = self._select(chains, qlen, [])
-            _account(hap, 'select_s', _time.time() - _t)
-            _t = _time.time()
-            metas = [
-                self._plan_chain(c, qry_name, qlen, oriented(c.is_rev), segments)
-                for c in accepted
-            ]
-            _account(hap, 'plan_chain_s', _time.time() - _t)
+            with spans.span('align.select'):
+                accepted, _ = self._select(chains, qlen, [])
+            with spans.span('align.plan_chain'):
+                metas = [
+                    self._plan_chain(c, qry_name, qlen, oriented(c.is_rev), segments)
+                    for c in accepted
+                ]
 
             # Coverage excluding break segments; pass 2 fills the gaps
             # (e.g. the inverted core of a bridged inversion).
-            _t = _time.time()
-            covered = []
-            for meta in metas:
-                covered.extend(self._covered_spans(meta, segments, qlen))
-            remaining = [c for c in chains if c not in accepted]
-            accepted2, _ = self._select(remaining, qlen, covered)
-            _account(hap, 'select_s', _time.time() - _t)
-            _t = _time.time()
-            for c in accepted2:
-                metas.append(self._plan_chain(
-                    c, qry_name, qlen, oriented(c.is_rev), segments))
-            _account(hap, 'plan_chain_s', _time.time() - _t)
+            with spans.span('align.select'):
+                covered = []
+                for meta in metas:
+                    covered.extend(self._covered_spans(meta, segments, qlen))
+                remaining = [c for c in chains if c not in accepted]
+                accepted2, _ = self._select(remaining, qlen, covered)
+            with spans.span('align.plan_chain'):
+                for c in accepted2:
+                    metas.append(self._plan_chain(
+                        c, qry_name, qlen, oriented(c.is_rev), segments))
 
             # Semi-global end extension: chains stop at their terminal anchors,
             # leaving anchor-free contig tails (e.g. SNV-dense divergence)
             # unaligned. Extend the outermost chain toward each contig end
             # (reference aligners extend with Z-drop: minimap2 -z; the
             # best-prefix trim in _chain_records is the analog).
-            self._plan_end_extensions(metas, segments, qlen, oriented)
+            with spans.span('align.extend'):
+                self._plan_end_extensions(metas, segments, qlen, oriented)
+            spans.add(chains=len(metas))
             return metas, segments
-
-        import time as _time
 
         names = qry_store.names()
 
@@ -407,53 +405,46 @@ class Aligner:
         resident = base_map = None
         rc_map = {}
         if self.ladder == 'accel':
-            _t0 = _time.time()
-            arrays = [self.ref_store.get(c) for c in self.ref_store.names()]
-            for name in names:
-                codes = qry_store.get(name)
-                prepared[name] = {False: codes, True: seqcodec.revcomp(codes)}
-                arrays.append(codes)
-            _account(hap, 'res_prep_s', _time.time() - _t0)
-            resident, base_map = _build_resident_from(arrays, self.dp.devices)
-            # Reverse-complement arrays are never uploaded: a window of the
-            # rc contig maps onto the forward buffer with the gather's
-            # reverse+complement flags (halves the resident buffer).
-            for name in names:
-                fwd = prepared[name][False]
-                rc_map[id(prepared[name][True])] = (base_map[id(fwd)], len(fwd))
-            _account(hap, 'resident_s', _time.time() - _t0)
+            with spans.span('align.resident'):
+                arrays = [self.ref_store.get(c) for c in self.ref_store.names()]
+                for name in names:
+                    codes = qry_store.get(name)
+                    prepared[name] = {False: codes, True: seqcodec.revcomp(codes)}
+                    arrays.append(codes)
+                resident, base_map = _build_resident_from(arrays, self.dp.devices)
+                # Reverse-complement arrays are never uploaded: a window of the
+                # rc contig maps onto the forward buffer with the gather's
+                # reverse+complement flags (halves the resident buffer).
+                for name in names:
+                    fwd = prepared[name][False]
+                    rc_map[id(prepared[name][True])] = (base_map[id(fwd)], len(fwd))
 
-        _t0 = _time.time()
-        if len(names) > 1:
-            # Contigs are independent until DP batching; the hot pieces
-            # (native sketch/chain, numpy) release the GIL.
-            from ...parallel import pools
-            with pools.executor(min(4, len(names))) as pool:
+        # Contigs are independent until DP batching; the hot pieces (native
+        # sketch/chain, numpy) release the GIL.
+        from ...parallel import pools
+        with spans.span('align.plan') as plan:
+            with pools.Executor('plan', min(4, len(names)),
+                                task_span='align.plan_contig') as pool:
                 results = list(pool.map(plan_contig, names))
-        else:
-            results = [plan_contig(n) for n in names]
 
-        # Merge per-contig segment lists, rebasing part references.
-        chain_meta = []
-        segments = []
-        for metas, segs in results:
-            base = len(segments)
-            for meta in metas:
-                meta['parts'] = [
-                    (p[0], p[1] + base) if p[0] == 'seg' else p
-                    for p in meta['parts']
-                ]
-                chain_meta.append(meta)
-            segments.extend(segs)
-        _account(hap, 'plan_s', _time.time() - _t0)
+            # Merge per-contig segment lists, rebasing part references.
+            chain_meta = []
+            segments = []
+            for metas, segs in results:
+                base = len(segments)
+                for meta in metas:
+                    meta['parts'] = [
+                        (p[0], p[1] + base) if p[0] == 'seg' else p
+                        for p in meta['parts']
+                    ]
+                    chain_meta.append(meta)
+                segments.extend(segs)
+        _account_plan(hap, plan.seconds)
 
-        _t0 = _time.time()
-        self._run_segments(segments, resident, base_map, rc_map)
-        _account(hap, 'dp_s', _time.time() - _t0)
-        _t0 = _time.time()
-        table = self._emit_table(chain_meta, segments, hap)
-        _account(hap, 'emit_s', _time.time() - _t0)
-        return table
+        with spans.span('align.dp', segments=len(segments)):
+            self._run_segments(segments, resident, base_map, rc_map)
+        with spans.span('align.emit'):
+            return self._emit_table(chain_meta, segments, hap)
 
     # -------------------------------------------------------------- selection
 
@@ -924,10 +915,8 @@ class Aligner:
         # flags) descriptors and the padded windows are gathered on the
         # device.
         if accel and resident is None:
-            import time as _time
-            _t0 = _time.time()
-            resident, base_map = _build_resident(segments, self.dp.devices)
-            ALIGN_STATS['resident_s'] += _time.time() - _t0
+            with spans.span('align.resident'):
+                resident, base_map = _build_resident(segments, self.dp.devices)
 
         def locate(d):
             """Descriptor -> (resident_offset, len, gather_flags) or None.
@@ -1264,8 +1253,6 @@ def _build_resident_from(arrays, devices):
     past a window, so no padding or guard region is needed.
 
     :return: ({device: int8 tensor}, {id(array): base offset})."""
-    import time as _time
-
     srcs = []
     base_map = {}
     total = 0
@@ -1281,11 +1268,10 @@ def _build_resident_from(arrays, devices):
                          f'must stay below 2^31 bases')
     if not srcs:
         return None, None
-    t0 = _time.time()
-    buf = np.concatenate([np.asarray(a, dtype=np.uint8) for a in srcs]).view(np.int8)
-    host = torch.from_numpy(buf)
-    resident = {torch.device(d): host.to(d) for d in devices}
-    ALIGN_STATS['res_upload_s'] += _time.time() - t0
+    with spans.span('align.upload', bases=total):
+        buf = np.concatenate([np.asarray(a, dtype=np.uint8) for a in srcs]).view(np.int8)
+        host = torch.from_numpy(buf)
+        resident = {torch.device(d): host.to(d) for d in devices}
     return resident, base_map
 
 

@@ -6,35 +6,20 @@ no per-base Python loops). The index is a hash-sorted flat table queried by
 binary search — replicated or sharded per host in the multi-host path.
 """
 
+import os
+
 import numpy as np
 
 from ... import kmer as km
+from ...parallel import pools
 
 _SIGN_FLIP = np.uint64(0x8000000000000000)
 _INVALID = np.uint64(0xFFFFFFFFFFFFFFFF)
 
-import threading as _threading
-
-_POOL = None
-_POOL_LOCK = _threading.Lock()
-
-
-def _pool():
-    """Shared sketching pool (the native sketcher releases the GIL).
-    Double-checked lock: concurrent contig-planning threads must never race
-    two executors into existence (the loser would leak idle workers).
-    Under ``parallel.pools.inline()`` the sketches run in the caller."""
-    global _POOL
-    from ...parallel import pools
-    if pools.inlined():
-        return pools.InlineExecutor()
-    if _POOL is None:
-        with _POOL_LOCK:
-            if _POOL is None:
-                import os
-                from concurrent.futures import ThreadPoolExecutor
-                _POOL = ThreadPoolExecutor(max_workers=min(4, os.cpu_count() or 1))
-    return _POOL
+# The shared sketching pool (the native sketcher, the anchor probe and the
+# chain slabs release the GIL); the planning threads of both haplotypes feed
+# it, and each map on it is one ``pool:sketch`` span row.
+SKETCH_POOL = pools.Executor('sketch', min(4, os.cpu_count() or 1))
 
 
 def mix64(x):
@@ -136,7 +121,7 @@ def minimizers_parallel(codes, k, w, chunk=_SKETCH_CHUNK):
         keep = (pos >= lo) & (pos < hi)
         return pos[keep], h[keep], strand[keep]
 
-    parts = list(_pool().map(lambda b: sketch_one(*b),
+    parts = list(SKETCH_POOL.map(lambda b: sketch_one(*b),
                              zip(bounds[:-1], bounds[1:])))
     return (np.concatenate([p[0] for p in parts]),
             np.concatenate([p[1] for p in parts]),

@@ -268,7 +268,7 @@ def scan_for_events(df, ref_store, qry_store, hap, k_size=31, n_index=None,
             except Exception as ex:
                 return ('raise', ex, buf.getvalue())
 
-        with pools.executor(min(4, len(cand_regions))) as pool:
+        with pools.Executor('largesv', min(4, len(cand_regions))) as pool:
             for key, result in zip(cand_keys, pool.map(scan_capture, cand_regions)):
                 memo[key] = result
 

@@ -26,11 +26,11 @@ Traceback byte layout (bit set =>):
 """
 
 import threading
-import time
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..align import cigar as cg
 
 from ..device import resolve_device
@@ -282,18 +282,18 @@ class BandedAligner:
             qpad[i, :len(qq)] = qq
             rpad[i, :len(rr)] = rr
 
-        t0 = time.time()
         fused = []
         host = [torch.from_numpy(a) for a in (qpad, rpad, m_p, n_p)]
-        for dev, (q, r, mt, nt) in self._place(host, B_pad, max_m, width):
-            with on_device(dev):
-                fused.append(align_and_trace(q, r, mt, nt, max_m, width,
-                                             self.scoring, band))
+        with spans.span('dp.launch', items=B, cells=B_pad * max_m * width) as launch:
+            for dev, (q, r, mt, nt) in self._place(host, B_pad, max_m, width):
+                with on_device(dev):
+                    fused.append(align_and_trace(q, r, mt, nt, max_m, width,
+                                                 self.scoring, band))
         with _STATS_LOCK:
             STATS['launches'] += 1
             STATS['items'] += B
             STATS['h2d_bytes'] += B_pad * (max_m + max_n + 8)
-            STATS['dispatch_s'] += time.time() - t0
+            STATS['dispatch_s'] += launch.seconds
         cells_real = int(np.sum(m.astype(np.int64) * np.minimum(n + 1, width)))
         return self._finish(fused, B, B_pad, max_m, max_n, width,
                             cells_real=cells_real)
@@ -320,20 +320,20 @@ class BandedAligner:
         arr[B:, 1] = 1   # padding items: 1-base windows
         arr[B:, 4] = 1
 
-        t0 = time.time()
         fused = []
-        for dev, (desc,) in self._place([torch.from_numpy(arr)], B_pad,
-                                        max_m, width):
-            with on_device(dev):
-                q, r, m, n = _gather_resident(resident[dev], desc, max_m, max_n)
-                fused.append(align_and_trace(q, r, m, n, max_m, width,
-                                             self.scoring, band))
+        with spans.span('dp.launch', items=B, cells=B_pad * max_m * width) as launch:
+            for dev, (desc,) in self._place([torch.from_numpy(arr)], B_pad,
+                                            max_m, width):
+                with on_device(dev):
+                    q, r, m, n = _gather_resident(resident[dev], desc, max_m, max_n)
+                    fused.append(align_and_trace(q, r, m, n, max_m, width,
+                                                 self.scoring, band))
         flags = np.bincount(arr[:B, [2, 5]].ravel(), minlength=4)
         with _STATS_LOCK:
             STATS['launches'] += 1
             STATS['items'] += B
             STATS['h2d_bytes'] += arr.nbytes
-            STATS['dispatch_s'] += time.time() - t0
+            STATS['dispatch_s'] += launch.seconds
             STATS['gather_flags'] = tuple(
                 int(a + b) for a, b in zip(STATS['gather_flags'], flags))
         cells_real = int(np.sum(
@@ -364,11 +364,11 @@ class BandedAligner:
             host = (fused[0] if len(fused) == 1 else torch.cat(fused))[:B]
 
         def resolve():
-            t1 = time.time()
-            for done in events:
-                done.synchronize()
-            buf = host.numpy()
-            dt = time.time() - t1
+            with spans.span('dp.resolve', items=B, cells=B_pad * max_m * width) as wait:
+                for done in events:
+                    done.synchronize()
+                buf = host.numpy()
+            dt = wait.seconds
             pk = buf[:, :-5]
             pl = (buf[:, -5:-1].astype(np.int32)
                   << np.arange(4, dtype=np.int32) * 8).sum(axis=1)

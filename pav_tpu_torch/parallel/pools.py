@@ -1,18 +1,29 @@
-"""The port's thread pools, and the switch that runs them inline.
+"""The port's thread pools, each task timed into the host spans.
 
-``torch.profiler`` records the host ops of the thread that opened it only:
-an op run on a pool thread is missing from the trace. While a profile is
-open (``inline()``, entered by ``pipeline.run`` with ``profile_dir``), every
-pool of the port (haplotypes, inversion regions, merge jobs, contig
-planning, sketching, large-SV scans, the artifact writer) runs its tasks one
-after another in the calling thread, so the trace holds every host op. The
-results are the same; what a profiled run gives up is the overlap of those
-tasks on threads. Without a profile the pools keep their threads.
+``Executor(name, max_workers, task_span=None)`` has the part of
+``ThreadPoolExecutor``'s interface the port uses (``submit``, ``map``, the
+``with`` block). A task runs in a copy of the submitting thread's span
+context (``spans``): its spans belong to the submitter's sample and name the
+submitter's open span as their parent. Each task's queue wait (submit to
+start) and run are recorded. With ``task_span``, each task is a span of that
+name whose WAIT_NS is its wait. Otherwise each use of the pool (a ``with``
+block, or one ``map`` outside a block) is one row, ``pool:<name>``, that sums
+its tasks (``spans.PoolUse``), so the rows do not grow with the tasks. A pool
+of one worker runs its tasks in the caller.
+
+``inline()`` runs every pool's tasks in the calling thread while its block
+runs: the results are the same, without the overlap of the tasks. Tests use
+it to run a sample in one thread; a profiled run keeps its threads (the
+profiler records them all: ``pipeline.run``).
 """
 
 import contextlib
+import contextvars
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
+
+from .. import spans
 
 _DEPTH = 0
 _LOCK = threading.Lock()
@@ -35,43 +46,86 @@ def inlined():
     return _DEPTH > 0
 
 
-class InlineExecutor:
-    """The part of ``ThreadPoolExecutor``'s interface the port uses, run in
-    the calling thread: ``submit`` runs the task at once and returns its
-    finished future; ``map`` returns the results in order."""
+class Executor:
+    """A named pool of ``max_workers`` threads, started on its first task
+    (see the module docstring)."""
+
+    def __init__(self, name, max_workers, task_span=None):
+        self.name = name
+        self.task_span = task_span
+        self._workers = max_workers
+        self._pool = None
+        self._use = None
+        self._lock = threading.Lock()
 
     def __enter__(self):
+        self._use = spans.PoolUse('pool:' + self.name)
         return self
 
     def __exit__(self, *exc):
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+        self._use.close()
+        self._use = None
         return False
 
     def submit(self, fn, *args, **kwargs):
+        return self._submit(self._use, fn, args, kwargs)
+
+    def map(self, fn, *iterables):
+        """The results of ``fn`` over the arguments, in order, once all are
+        done (the first failure is raised, and the tasks not started are
+        cancelled)."""
+        use = self._use or spans.PoolUse('pool:' + self.name)
+        futures = [self._submit(use, fn, args, {}) for args in zip(*iterables)]
+        try:
+            return iter([f.result() for f in futures])
+        except BaseException:
+            for f in futures:
+                f.cancel()
+            raise
+        finally:
+            if use is not self._use:
+                use.close()
+
+    def _submit(self, use, fn, args, kwargs):
+        call = (contextvars.copy_context().run, self._run, use, time.time_ns(),
+                fn, args, kwargs)
+        if self._workers > 1 and not inlined():
+            return self._executor().submit(*call)
         fut = Future()
         try:
-            fut.set_result(fn(*args, **kwargs))
+            fut.set_result(call[0](*call[1:]))
         except BaseException as ex:   # delivered by fut.result(), as a pool does
             fut.set_exception(ex)
         return fut
 
-    def map(self, fn, *iterables):
-        return iter([fn(*args) for args in zip(*iterables)])
+    def _executor(self):
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=self._workers,
+                                                thread_name_prefix=f'pav-{self.name}')
+            return self._pool
 
-
-def executor(max_workers):
-    """A ``ThreadPoolExecutor`` of ``max_workers``, or an ``InlineExecutor``
-    under ``inline()``."""
-    return InlineExecutor() if inlined() else ThreadPoolExecutor(max_workers=max_workers)
+    def _run(self, use, submitted_ns, fn, args, kwargs):
+        wait_ns = time.time_ns() - submitted_ns
+        if self.task_span is not None:
+            with spans.span(self.task_span, wait_ns=wait_ns):
+                return fn(*args, **kwargs)
+        if use is None:
+            return fn(*args, **kwargs)
+        return use.task(wait_ns, fn, args, kwargs)
 
 
 def start_thread(target, args=()):
-    """Start ``target(*args)`` on a daemon thread and return an object whose
-    ``join()`` waits for it; under ``inline()`` it runs at once and ``join``
-    returns."""
+    """Start ``target(*args)`` on a daemon thread, in a copy of this
+    thread's span context, and return an object whose ``join()`` waits for
+    it; under ``inline()`` it runs at once and ``join`` returns."""
+    run = contextvars.copy_context().run
     if inlined():
-        target(*args)
+        run(target, *args)
         return _Done()
-    thread = threading.Thread(target=target, args=args, daemon=True)
+    thread = threading.Thread(target=run, args=(target, *args), daemon=True)
     thread.start()
     return thread
 

@@ -19,6 +19,7 @@ for the run (config key ``device``, default ``cuda``); config key
 (``parallel.mesh``).
 """
 
+import contextlib
 import io as _io
 import os
 import sys
@@ -27,7 +28,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from . import constants, seqcodec, vcf as vcf_mod
+from . import constants, seqcodec, spans, vcf as vcf_mod
 from .align.aligner import Aligner
 from .align.lift import AlignLift
 from .align.table import depth_table, finalize_align_table
@@ -116,18 +117,22 @@ class Pipeline:
             self.mesh = [resolve_device(d) for d in mesh]
         else:
             self.mesh = make_mesh(n_mesh, self.device) if n_mesh > 1 else None
-        self.ref_store = ref if isinstance(ref, SeqStore) else SeqStore.from_file(ref)
         self.run_dir = run_dir
         self.log = log if log is not None else sys.stderr
         if run_dir:
             os.makedirs(run_dir, exist_ok=True)
 
-        self.ref_info = vcf_mod.ref_info_table(self.ref_store)
-        self.n_gaps = self.ref_store.n_gap_table()
-        self.n_index = (build_interval_index_by_chrom(self.n_gaps)
-                        if self.n_gaps.shape[0] else {})
+        # The host spans of this engine's runs (written per sample beside
+        # timings.tsv); the reference's tables are the run's first span.
+        self.spans = spans.Recorder()
+        with self.spans.active(), spans.span('run:reference'):
+            self.ref_store = ref if isinstance(ref, SeqStore) else SeqStore.from_file(ref)
+            self.ref_info = vcf_mod.ref_info_table(self.ref_store)
+            self.n_gaps = self.ref_store.n_gap_table()
+            self.n_index = (build_interval_index_by_chrom(self.n_gaps)
+                            if self.n_gaps.shape[0] else {})
         self._aligner = None
-        self.timings = {}  # {(asm, hap, stage): seconds}
+        self.timings = {}  # {(label, stage): seconds}, from the stage spans
 
     # ---------------------------------------------------------------- stages
 
@@ -145,19 +150,12 @@ class Pipeline:
         self.log.write(f'[pav_tpu_torch] {msg}\n')
         self.log.flush()
 
+    @contextlib.contextmanager
     def _timed(self, label, stage):
-        """Time a stage into ``timings``; under a profiler the stage is a
-        span named ``label:stage``."""
-        import contextlib
-        import time as _time
-
-        @contextlib.contextmanager
-        def cm():
-            t0 = _time.time()
-            with torch.profiler.record_function(f'{label}:{stage}'):
-                yield
-            self.timings[(label, stage)] = round(_time.time() - t0, 3)
-        return cm()
+        """Time a stage as span ``label:stage`` into ``timings``."""
+        with spans.span(f'{label}:{stage}', label=label) as sp:
+            yield sp
+        self.timings[(label, stage)] = round(sp.seconds, 3)
 
     def run_haplotype(self, qry_store, hap, config=None, label=None,
                       qry_filter_df=None):
@@ -327,11 +325,8 @@ class Pipeline:
                 log_buf.write(f'RuntimeError in scan_for_inv(): {ex}\n')
                 return None
 
-        if len(flag_rows) > 1:
-            with pools.executor(min(4, len(flag_rows))) as pool:
-                inv_calls = list(pool.map(scan_one, flag_rows))
-        else:
-            inv_calls = [scan_one(r) for r in flag_rows]
+        with pools.Executor('inv_scan', min(4, len(flag_rows))) as pool:
+            inv_calls = list(pool.map(scan_one, flag_rows))
 
         # Dedup and row assembly stay sequential in flag order so IDs and
         # artifact ordering are deterministic regardless of thread timing.
@@ -425,31 +420,40 @@ class Pipeline:
 
         :return: dict with per-hap results, merged tables, and the VCF path.
         """
+        with self.spans.active():
+            return self._run_sample(asm_name, hap_inputs, config, write_vcf, resume,
+                                    qry_filters)
+
+    def _run_sample(self, asm_name, hap_inputs, config, write_vcf, resume, qry_filters):
         cfg = config or self.config
         qry_filters = qry_filters or {}
         hap_results = {}
         to_run = []
-        for hap, inp in hap_inputs.items():
-            if resume:
-                loaded = self.resume_haplotype(asm_name, hap, cfg,
-                                               qry_filter_df=qry_filters.get(hap))
-                if loaded is not None:
-                    self._logmsg(f'{asm_name}/{hap}: resumed from artifacts')
-                    hap_results[hap] = loaded
+        with spans.span(f'{asm_name}:load', label=asm_name):
+            for hap, inp in hap_inputs.items():
+                if resume:
+                    loaded = self.resume_haplotype(asm_name, hap, cfg,
+                                                   qry_filter_df=qry_filters.get(hap))
+                    if loaded is not None:
+                        self._logmsg(f'{asm_name}/{hap}: resumed from artifacts')
+                        hap_results[hap] = loaded
+                        continue
+                store = (inp if isinstance(inp, SeqStore)
+                         else load_haplotype_seqs(inp, asm_name, hap))
+                if not store.names():
+                    self._logmsg(f'{asm_name}/{hap}: no input sequence, skipping haplotype')
                     continue
-            store = inp if isinstance(inp, SeqStore) else load_haplotype_seqs(inp, asm_name, hap)
-            if not store.names():
-                self._logmsg(f'{asm_name}/{hap}: no input sequence, skipping haplotype')
-                continue
-            to_run.append((hap, store))
+                to_run.append((hap, store))
 
         # Haplotypes run concurrently: the hot kernels (native C++, device DP)
         # release the GIL, so two haplotype threads overlap host and device
         # work (the reference fans haplotypes out as independent cluster jobs:
-        # SURVEY.md §2.8). Under a profile they run in turn (parallel.pools).
-        if len(to_run) > 1:
-            self.aligner  # build the shared index before the threads start
-            with pools.executor(min(len(to_run), 4)) as pool:
+        # SURVEY.md §2.8). The shared index is built before the threads start.
+        if to_run:
+            with spans.span(f'{asm_name}:index', label=asm_name):
+                self.aligner
+        with spans.span(f'{asm_name}:haplotypes', label=asm_name):
+            with pools.Executor('haplotypes', min(len(to_run), 4)) as pool:
                 futures = {
                     hap: pool.submit(self.run_haplotype, store, hap, cfg,
                                      f'{asm_name}/{hap}',
@@ -458,11 +462,6 @@ class Pipeline:
                 }
                 for hap, fut in futures.items():
                     hap_results[hap] = fut.result()
-        elif to_run:
-            hap, store = to_run[0]
-            hap_results[hap] = self.run_haplotype(
-                store, hap, cfg, label=f'{asm_name}/{hap}',
-                qry_filter_df=qry_filters.get(hap))
 
         hap_list = list(hap_results.keys())
 
@@ -471,8 +470,10 @@ class Pipeline:
         # GIL). Only the merged_* tables wait for the merge.
         art_thread = None
         if self.run_dir:
-            art_thread = pools.start_thread(
-                self._write_hap_artifacts, (asm_name, hap_results, dict(to_run)))
+            def write_hap_artifacts():
+                with spans.span(f'{asm_name}:hap_artifacts', label=asm_name):
+                    self._write_hap_artifacts(asm_name, hap_results, dict(to_run))
+            art_thread = pools.start_thread(write_hap_artifacts)
 
         with self._timed(asm_name, 'merge'):
             merged = self._merge_all(asm_name, hap_results, hap_list, cfg)
@@ -500,11 +501,14 @@ class Pipeline:
 
     def _write_timings(self, asm_name):
         """Stage wall seconds of this sample -> <run_dir>/<sample>/timings.tsv
-        (LABEL is the sample, or sample/hap for per-haplotype stages)."""
+        (LABEL is the sample, or sample/hap for per-haplotype stages), and
+        the sample's spans with the run's own -> spans.tsv beside it."""
         rows = [(label, stage, secs) for (label, stage), secs in self.timings.items()
                 if label == asm_name or label.startswith(f'{asm_name}/')]
+        base = os.path.join(self.run_dir, asm_name)
         pd.DataFrame(rows, columns=['LABEL', 'STAGE', 'SECONDS']).to_csv(
-            os.path.join(self.run_dir, asm_name, 'timings.tsv'), sep='\t', index=False)
+            os.path.join(base, 'timings.tsv'), sep='\t', index=False)
+        spans.write_tsv(self.spans.sample(asm_name), os.path.join(base, 'spans.tsv'))
 
     def _write_inv_figures(self, hdir, res, qry_store, figures=True):
         """Persist each accepted inversion's k-mer density table and (with
@@ -595,7 +599,7 @@ class Pipeline:
         self._logmsg(
             f'{asm_name}: merging {len(jobs)} callset tiers across {hap_list} '
             f'({len(chrom_batches)} chromosome batches)')
-        with pools.executor(4) as pool:
+        with pools.Executor('merge', 4) as pool:
             futures = {
                 key: pool.submit(run_job, bed_list, callable_list, strategy)
                 for key, bed_list, callable_list, strategy in jobs
@@ -700,10 +704,9 @@ def run(ref_path, asm_table_path, config=None, run_dir='pav_run', samples=None,
     :param profile_dir: When set, wraps the run in a torch.profiler trace of
         the host and (on CUDA) the device, written to
         ``profile_dir/trace.json`` (Chrome trace format). The profiler
-        records one thread's host ops, so the port's pools then run their
-        tasks in this thread (``parallel.pools.inline``): every stage of
-        every haplotype is in the trace, as a ``sample/hap:stage`` span, and
-        the haplotypes no longer overlap.
+        records every thread: each stage of each haplotype is a
+        ``sample/hap:stage`` span on its haplotype's thread, and the pools
+        keep their threads.
     :param device: torch device; None takes the config key ``device``
         (default ``cuda``).
     """
@@ -712,18 +715,17 @@ def run(ref_path, asm_table_path, config=None, run_dir='pav_run', samples=None,
     pipeline = Pipeline(ref_path, cfg, run_dir=run_dir, device=device)
     results = {}
 
-    import contextlib
     trace_cm = contextlib.nullcontext()
-    inline_cm = contextlib.nullcontext()
     if profile_dir:
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if pipeline.device.type == 'cuda':
             activities.append(ProfilerActivity.CUDA)
-        trace_cm = profile(activities=activities)
-        inline_cm = pools.inline()
+        trace_cm = profile(activities=activities,
+                           experimental_config=_ExperimentalConfig(profile_all_threads=True))
 
-    with trace_cm as prof, inline_cm:
+    with trace_cm as prof:
         for asm_name in (samples or asm_table.index):
             local_cfg = override_config(cfg, get_asm_config_override(asm_table, asm_name))
             haps = get_hap_list(asm_table, asm_name)

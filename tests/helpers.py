@@ -185,3 +185,34 @@ def repeat_rich_ref(length, rng, n_gap_prop=0.005):
     codes = np.concatenate(seg)[:length]
     ann = [(k, p, min(e, length)) for k, p, e in ann if p < length]
     return codes, ann
+
+
+def write_two_hap_sample(d, h2_cut=None):
+    """The 200 kb diploid sample of the port's CLI tests, written under
+    ``d`` with the port's FASTA writer: ref.fa (chr1), h1.fa (tig1: an SNV,
+    a 300 bp deletion, another SNV), h2.fa (tig2: its own SNV and a 25 bp
+    insertion; cut at ``h2_cut`` into tig2a and tig2b where given) and
+    asm.tsv (sample S1). Returns the CLI's input arguments and the
+    contigs' lengths."""
+    from pav_tpu_torch import seqcodec as torch_codec
+    from pav_tpu_torch.io.fasta import write_fasta
+
+    rng = np.random.default_rng(7)
+    ref = random_seq(200000, rng)
+    m1 = Mutator(ref)
+    m1.snv(5000, rng=rng)
+    m1.dele(50000, 300)
+    m1.snv(120000, rng=rng)
+    m2 = Mutator(ref)
+    m2.snv(30000, rng=rng)
+    m2.ins(90000, random_seq(25, rng))
+    h1, h2 = m1.finish(), m2.finish()
+    tigs2 = ({'tig2': h2} if h2_cut is None
+             else {'tig2a': h2[:h2_cut], 'tig2b': h2[h2_cut:]})
+    write_fasta({'chr1': torch_codec.decode(ref)}, str(d / 'ref.fa'))
+    write_fasta({'tig1': torch_codec.decode(h1)}, str(d / 'h1.fa'))
+    write_fasta({k: torch_codec.decode(v) for k, v in tigs2.items()}, str(d / 'h2.fa'))
+    (d / 'asm.tsv').write_text(f'NAME\tHAP_h1\tHAP_h2\nS1\t{d / "h1.fa"}\t{d / "h2.fa"}\n')
+    lengths = {'tig1': len(h1), **{k: len(v) for k, v in tigs2.items()}}
+    return ['--ref', str(d / 'ref.fa'), '--assemblies', str(d / 'asm.tsv'),
+            '--device', 'cpu'], lengths

@@ -285,7 +285,7 @@ def test_cli_matches_unforced_reference(tmp_path, genome):
     """``python -m pav_tpu_torch --device cpu`` against ``python -m
     pav_tpu`` on JAX's CPU backend, neither forced: the same VCF records
     (apart from fileDate) and the same stage tables, file for file; the
-    port adds only its timings.tsv."""
+    port adds only its timings.tsv and spans.tsv."""
     make, cfg = GENOMES[genome]
     ref, h1, h2 = make()
     write_fasta({'chr1': seqcodec.decode(ref)}, str(tmp_path / 'ref.fa'))
@@ -300,7 +300,7 @@ def test_cli_matches_unforced_reference(tmp_path, genome):
     assert port_main(common + ['--run-dir', str(tmp_path / 'port'), '--device', 'cpu']) == 0
     want = _run_files(tmp_path / 'ref')
     got = _run_files(tmp_path / 'port')
-    assert set(got) - set(want) == {os.path.join('S1', 'timings.tsv')}
+    assert set(got) - set(want) == {os.path.join('S1', f) for f in ('timings.tsv', 'spans.tsv')}
     assert set(want) <= set(got)
     assert sum(p.endswith('.tsv.gz') for p in want) >= 20
     for rel, path in want.items():

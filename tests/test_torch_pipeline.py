@@ -146,11 +146,11 @@ def _content(path):
 def test_port_side_outputs_match_reference(runs):
     """artifacts=full: the port writes the reference's files (BAM, BigBed
     tracks, inversion density tables, figures) with the same contents; the
-    port adds only its per-sample timings.tsv."""
+    port adds only its per-sample timings.tsv and spans.tsv."""
     *_, ref_dir, port_dir = runs
     want = _run_files(ref_dir)
     got = _run_files(port_dir)
-    assert set(got) - set(want) == {os.path.join('samp1', 'timings.tsv')}
+    assert set(got) - set(want) == {os.path.join('samp1', f) for f in ('timings.tsv', 'spans.tsv')}
     assert set(want) <= set(got)
     assert any(p.endswith('.bam') for p in want)
     assert any(p.endswith('.bb') for p in want)
