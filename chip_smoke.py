@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times
     python3 chip_smoke.py --dp-full-times
+    python3 chip_smoke.py --seed-times
     python3 chip_smoke.py --chrom
     python3 chip_smoke.py --wide
     python3 chip_smoke.py --asm
@@ -22,9 +23,10 @@ windowed design is timed beside the default at every tape where the
 checkout's library can force it (``pav_traceback_whole_max``). Phase 3 of
 a full run takes its device times from such a fresh process.
 ``--dp-full-times`` prints the dp_full part alone as {"root", "card",
-"shapes": [...]}. ``--chrom`` runs phases 1, 2 and 11 alone, ``--wide``
-phases 1, 2 and 13, ``--asm`` phases 1, 2 and 14; none prints a result
-line. A copy of this file
+"shapes": [...]}. ``--seed-times`` runs phase 3's seeding part alone
+(``seed_times``) and prints its JSON line. ``--chrom`` runs phases
+1, 2 and 11 alone, ``--wide`` phases 1, 2 and 13, ``--asm`` phases 1, 2
+and 14; none prints a result line. A copy of this file
 placed in another checkout (``git archive`` of a parent commit) times that
 checkout's kernels: run the two in one call, in turns (A, B, B, A), to
 compare two versions on one card.
@@ -47,12 +49,18 @@ Phases (each prints its lines; any failure exits nonzero):
      longest path and ns per step. The chain scan also at one slab of 2^20
      anchors against the native host kernel it stands in for (bit for bit,
      and its host time), with its bound over the card and its dependency
-     bound (n steps of the probe's dependent chain). Then the batched
+     bound (n steps of the probe's dependent chain). Then minimizer
+     seeding at chr21's length (``seed_times``): the device index's tables
+     against MinimizerIndex, a contig's sorted anchors against the host
+     path, and the sketch, run and probe/fill wrappers against their plain
+     versions on the same CUDA inputs, all bit for bit, each kernel's device
+     time from one trace. Then the batched
      density on CUDA against the same call on the CPU (decision level),
      with its bound at DENSITY_LONG;
   4. main path: a 16 Mbp reference and a diploid sample (the generator of
      bench.py, seed 11) from FASTA through ``python -m pav_tpu_torch
-     --device cuda`` to a VCF; the full-width and traceback kernels must run.
+     --device cuda`` to a VCF; the full-width, traceback and seeding
+     kernels must run.
      The wall, the launches, torch's peak device memory and nvidia-smi's
      samples (memory, power, clocks, utilisation) are read from that run,
      without a profiler; its VCF must meet tests/test_recall.py's recall
@@ -91,7 +99,8 @@ Phases (each prints its lines; any failure exits nonzero):
      seconds, launches, DP class table with the DP kernel and the walker
      timed per class, density paths, the child's peak RSS from os.wait4 and
      torch's peak allocation in it, nvidia-smi samples beside it); equal VCF
-     records in both, the full-width and traceback kernels must run, the
+     records in both, the full-width, traceback and seeding kernels must
+     run, the
      walker's launches are timed on the run's own tapes in the warm-up run
      (the measured run carries no such instrumentation), and the VCF must
      meet the recall floors against the planted truth;
@@ -247,7 +256,38 @@ KERNELS = {
                   'traceback'),
     'chain_scan': ('pav_tpu_torch/csrc/chain_scan.cu', 'pav_tpu/ops/chain_scan.py:20',
                    'chain_scan'),
+    # Minimizer seeding replaces no TPU kernel: pav_tpu seeds on the host.
+    'seed_sketch': ('pav_tpu_torch/csrc/seed.cu', 'none (host: native/minimizer.cpp)',
+                    'sketch'),
+    'seed_runs': ('pav_tpu_torch/csrc/seed.cu', 'none (host: np.unique in index.py)', 'runs'),
+    'seed_probe': ('pav_tpu_torch/csrc/seed.cu', 'none (host: native/lookup.cpp)', 'probe'),
+    'seed_fill': ('pav_tpu_torch/csrc/seed.cu', 'none (host: native/lookup.cpp)', 'fill'),
 }
+
+
+def launches_reset():
+    """Zero the launch counters of every kernel in KERNELS."""
+    from pav_tpu_torch.ops import chain_scan, dp_kernels, seed
+    dp_kernels.launches_reset()
+    chain_scan.launches_reset()
+    seed.launches_reset()
+
+
+def launches_read():
+    """{KERNELS' LAUNCHES key: launches since launches_reset}."""
+    from pav_tpu_torch.ops import chain_scan, dp_kernels, seed
+    return dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'],
+                **seed.LAUNCHES)
+
+
+def require_main_path(name, launches):
+    """Fail unless a main-path run launched the full-width DP, the walker
+    and every seeding kernel (its index and its contigs' anchors seeded on
+    the card)."""
+    missing = [key for key in ('full', 'traceback', 'sketch', 'runs', 'probe', 'fill')
+               if launches[key] <= 0]
+    if missing:
+        fail(f'{name} did not launch {missing}: {launches}')
 
 
 def log(msg):
@@ -1025,7 +1065,7 @@ def cli_child(stats_path, argv):
     rc = cli_main(argv)
     wall = time.time() - t0
     stats = {'rc': rc, 'wall': wall, 'torch_memory': None,
-             'launches': dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan']),
+             'launches': launches_read(),
              'classes': [[list(k), list(v)] for k, v in affine_dp.STATS['classes'].items()],
              'density': density, 'align_stats': dict(core.ALIGN_STATS),
              'align_stats_by_hap': core.ALIGN_STATS_BY_HAP,
@@ -1178,6 +1218,172 @@ def chain_times(dev):
     return rows, step_ns
 
 
+SEED_REF_LEN = 46_709_983      # GRCh38 chr21
+SEED_KERNELS = ('sketch_kernel', 'scan_kernel', 'runs_kernel', 'probe_kernel', 'fill_kernel')
+
+
+def _kernel_ms(fn):
+    """{kernel group: device ms} of one call of ``fn`` from a CUDA-activity
+    trace: the seeding kernels by name, every other kernel (the sorts and
+    gathers) as ``torch``, and the copies as ``memcpy``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix='.json') as fh:
+        prof.export_chrome_trace(fh.name)
+        with open(fh.name) as trace:
+            events = json.load(trace).get('traceEvents', [])
+    out = {}
+    for ev in events:
+        name = ev.get('name', '')
+        if ev.get('cat') == 'kernel':
+            group = next((k for k in SEED_KERNELS if k in name), 'torch')
+        elif ev.get('cat') == 'gpu_memcpy':
+            group = 'memcpy'
+        else:
+            continue
+        out[group] = out.get(group, 0.0) + ev['dur'] / 1e3
+    return out
+
+
+def seed_index_tables(index):
+    """A DeviceMinimizerIndex's tables on the host, named and typed as
+    MinimizerIndex holds them."""
+    from pav_tpu_torch.ops import seed
+    starts = index.uniq_starts.cpu().numpy()
+    uniq = seed.to_hash(index.uniq_keys.cpu().numpy())
+    return {'hashes': np.repeat(uniq, np.diff(starts)),
+            'chrom_ids': index.chrom_ids.cpu().numpy(),
+            'positions': index.positions.cpu().numpy().astype(np.int64),
+            'strands': index.strands.cpu().numpy(),
+            'uniq_hashes': uniq, 'uniq_starts': starts[:-1], 'uniq_counts': np.diff(starts)}
+
+
+def seed_times(card, dev):
+    """--seed-times, and phase 3's seeding part: the reference index and one
+    contig's sorted anchors at chr21's length (uniform bases, seed 21; the
+    contig 1-31 Mbp forward, then 31-46 Mbp reverse-complemented, an SNV
+    every kilobase), on the host (MinimizerIndex and its sorted_anchors)
+    and on the card (DeviceMinimizerIndex and its sorted_anchors). Fails
+    unless the device index's tables equal the host's, the device anchors
+    the host's, and each wrapper on the card (``seed.sketch``, ``seed.runs``,
+    ``seed.anchors``) its plain version on the same CUDA inputs, all bit
+    for bit. Returns, and prints as one JSON line, the wall of each path
+    (the card's warm, median of 3), the plain versions' ms, the device ms by
+    kernel of one traced call, the bytes each seeding kernel must move and
+    its bound at HBM_BYTES_S, and the run pass against
+    ``torch.unique_consecutive`` on the same sorted keys (median of 5)."""
+    import torch
+    from pav_tpu_torch import seqcodec
+    from pav_tpu_torch.align.aligner.index import (DeviceMinimizerIndex, MinimizerIndex,
+                                                   minimizers)
+    from pav_tpu_torch.io.fasta import SeqStore
+    from pav_tpu_torch.ops import seed
+    rng = np.random.default_rng(21)
+    chrom = rng.integers(0, 4, SEED_REF_LEN).astype(np.uint8)
+    contig = np.concatenate([chrom[1_000_000:31_000_000],
+                             seqcodec.revcomp(chrom[31_000_000:46_000_000])])
+    contig[::1000] = (contig[::1000] + 1) % 4
+    ref = SeqStore({'chr21': chrom})
+
+    def walls(fn, reps):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return res, out
+
+    host, host_index_s = walls(lambda: MinimizerIndex(ref, 19, 10), 1)
+    want, host_anchor_s = walls(lambda: host.sorted_anchors(contig, 64), 1)
+    DeviceMinimizerIndex(ref, 19, 10, device=dev)           # warm-up
+    index, dev_index_s = walls(lambda: DeviceMinimizerIndex(ref, 19, 10, device=dev), 3)
+    for name, got in seed_index_tables(index).items():
+        if not (got.dtype == getattr(host, name).dtype
+                and np.array_equal(got, getattr(host, name))):
+            fail(f'seed times: the device index\'s {name} differ from MinimizerIndex\'s')
+    if (index.max_pos, index.n_minimizers()) != (host.max_pos, host.n_minimizers()):
+        fail('seed times: the device index\'s max_pos or size differ from MinimizerIndex\'s')
+    got, dev_anchor_s = walls(lambda: index.sorted_anchors(contig, 64), 3)
+    if not all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, want)):
+        fail('seed times: device anchors differ from the host path')
+
+    # Each wrapper against its plain version, on the same CUDA inputs.
+    codes = torch.from_numpy(chrom).to(dev)
+    sk = seed.sketch(codes, 19, 10)
+    sk_ref, sketch_pms = timed_ms(lambda: seed._sketch_ref(codes, 19, 10))
+    keys = torch.sort(sk[1], stable=True)[0]
+    rn = seed.runs(keys)
+    rn_ref, runs_pms = timed_ms(lambda: seed._runs_ref(keys))
+    qpos, qkey, qstrand = seed.sketch(torch.from_numpy(contig).to(dev), 19, 10)
+    an = seed.anchors(qpos, qkey, qstrand, len(contig), 19, 64, index.table())
+    an_ref, anchors_pms = timed_ms(lambda: seed._anchors_ref(qpos, qkey, qstrand, len(contig),
+                                                             19, 64, index.table()))
+    for name, g, w in (('sketch', sk, sk_ref), ('runs', rn, rn_ref), ('anchors', an, an_ref)):
+        if not all(torch.equal(a, b) for a, b in zip(g, w)):
+            fail(f'seed times: seed.{name} on the card differs from its plain version')
+    del sk_ref, rn_ref, an_ref
+
+    def unique_runs():
+        uniq, counts = torch.unique_consecutive(keys, return_counts=True)
+        return uniq, torch.cumsum(counts, 0)
+    uniq, ends = unique_runs()
+    if not (torch.equal(uniq, rn[0]) and torch.equal(ends, rn[1][1:])):
+        fail('seed times: torch.unique_consecutive gives other runs')
+    runs_call_ms = median_ms(lambda: seed.runs(keys), 5)
+    unique_call_ms = median_ms(unique_runs, 5)
+    del codes, sk, keys, rn, an, uniq, ends
+
+    k_index = _kernel_ms(lambda: DeviceMinimizerIndex(ref, 19, 10, device=dev))
+    k_anchor = _kernel_ms(lambda: index.sorted_anchors(contig, 64))
+    m, u, a = index.n_minimizers(), index.uniq_keys.numel(), len(want[0])
+    qhash = minimizers(contig, 19, 10)[1]
+    qm, found = len(qhash), int(np.isin(qhash, host.uniq_hashes).sum())
+    # Bytes each kernel must move (inputs read once, outputs written once):
+    # the sketch the bases and 13 bytes a minimizer; the runs the sorted keys
+    # and 16 bytes a run; the probe the query keys and 12 bytes a query
+    # (count, start) plus the runs it lands on; the fill the probe's output,
+    # the query positions and strands, 9 table bytes and 12 written an anchor.
+    nbytes = {'sketch (index)': SEED_REF_LEN + 13 * m,
+              'runs': 8 * m + 16 * u,
+              'sketch (contig)': len(contig) + 13 * qm,
+              'probe': 20 * qm + 16 * found,
+              'fill': 17 * qm + 21 * a}
+    out = {
+        'root': ROOT, 'card': card, 'ref_bases': SEED_REF_LEN, 'contig_bases': len(contig),
+        'minimizers': m, 'runs': u, 'contig_minimizers': qm, 'anchors': a,
+        'checked': 'tables, anchors, sketch, runs and anchors against their plain versions',
+        'host_s': {'index': host_index_s, 'anchors': host_anchor_s},
+        'card_s': {'index': dev_index_s, 'anchors': dev_anchor_s},
+        'plain_ms': {'sketch': sketch_pms, 'runs': runs_pms, 'anchors': anchors_pms},
+        'runs_call_ms': {'seed.runs': runs_call_ms, 'unique_consecutive': unique_call_ms},
+        'kernel_ms': {'index': k_index, 'anchors': k_anchor},
+        'bytes': nbytes,
+        'bound_ms': {k: 1e3 * v / HBM_BYTES_S for k, v in nbytes.items()}}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_seed(card, dev, stats):
+    """Phase 3's seeding part: seed_times (which fails on any difference),
+    its times into ``stats`` for the kernels line (the sketch at the
+    index's shape, the probe and fill at the contig's)."""
+    st = seed_times(card, dev)
+    for name, trace, kernel, key, plain in (
+            ('seed_sketch', 'index', 'sketch_kernel', 'sketch (index)', 'sketch'),
+            ('seed_runs', 'index', 'runs_kernel', 'runs', 'runs'),
+            ('seed_probe', 'anchors', 'probe_kernel', 'probe', 'anchors'),
+            ('seed_fill', 'anchors', 'fill_kernel', 'fill', 'anchors')):
+        stats[name].update(err=0, ms=st['kernel_ms'][trace].get(kernel), ms_by='trace',
+                           plain_ms=st['plain_ms'][plain], bound_ms=st['bound_ms'][key],
+                           bound_by='bytes')
+        log(f'kernel {name}: bit-identical at chr21\'s length; {stats[name]["ms"]} ms device '
+            f'(trace), bound {st["bound_ms"][key]:.4f} ms (bytes)')
+
+
 def main():
     import argparse
     if sys.argv[1:2] == ['--cli-child']:
@@ -1187,6 +1393,8 @@ def main():
                     help="only time this checkout's DP kernels and walker at phase 3's shapes")
     ap.add_argument('--dp-full-times', action='store_true',
                     help="only time this checkout's full-width DP kernel at FULL_SHAPES")
+    ap.add_argument('--seed-times', action='store_true',
+                    help="only time this checkout's minimizer seeding at chr21's length")
     ap.add_argument('--chrom', action='store_true',
                     help='run phases 1, 2 and 11 only (the chromosome-scale sample)')
     ap.add_argument('--wide', action='store_true',
@@ -1211,6 +1419,9 @@ def main():
     dev = torch.device(DEVICE, 0) if DEVICE == 'cuda' else torch.device(DEVICE)
     if args.kernel_times or args.dp_full_times:
         return kernel_times(card, dev, dp_full_only=not args.kernel_times)
+    if args.seed_times:
+        seed_times(card, dev)
+        return 0
     log(card)
     import pandas
     log(f'torch {torch.__version__} (CUDA {torch.version.cuda}), numpy {np.__version__}, '
@@ -1247,6 +1458,7 @@ def main():
     kt = fresh_kernel_times()
     stats = phase_kernels(dev, kt)
     phase_chain_scan(dev, stats, kt)
+    phase_seed(card, dev, stats)
     phase_density(dev)
     torch.cuda.synchronize()
 
@@ -1406,12 +1618,11 @@ def traced_run(work, name, ref, haps, want, wall_note):
     walker and the DP kernels. Returns the traced run's launches."""
     import torch
     from pav_tpu_torch.ops import chain_scan, dp_kernels
-    dp_kernels.launches_reset()
-    chain_scan.launches_reset()
+    launches_reset()
     trace = os.path.join(work, f'{name}_trace.json')
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         run_dir_t, wall_t = run_sample(work, f'{name}t', ref, haps, DEVICE)
-    launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    launches = launches_read()
     prof.export_chrome_trace(trace)
     if vcf_records(os.path.join(run_dir_t, f'{name}t.vcf.gz')) != want:
         fail(f'the traced {name} run wrote other VCF records than the untraced one')
@@ -1439,22 +1650,21 @@ def measured_run(work, name, ref, haps, card):
     """One CLI run of a sample on DEVICE without a profiler (phases 4 and
     13b): its wall and contig Mbp/s, launches (read from 0 just before the
     run to just after it), stage seconds, ALIGN_STATS, torch's peak device
-    memory and nvidia-smi samples beside it; the full-width and traceback
-    kernels must run. Returns (run dir, VCF records, launches, DP class
-    table, contig Mbp/s)."""
+    memory and nvidia-smi samples beside it; the full-width, traceback and
+    seeding kernels must run (require_main_path). Returns (run dir, VCF
+    records, launches, DP class table, contig Mbp/s)."""
     import torch
     from pav_tpu_torch.align.aligner import core
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = smi_memory_used()
-    dp_kernels.launches_reset()
-    chain_scan.launches_reset()
+    launches_reset()
     affine_dp.stats_reset()
     core.align_stats_reset()
     with gpu_samples(os.path.join(work, f'{name}_smi.csv')) as smi:
         run_dir, wall = run_sample(work, name, ref, haps, DEVICE)
-    launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    launches = launches_read()
     # A copy of the counters: a later traced run adds to the same lists.
     classes = {k: tuple(v) for k, v in affine_dp.STATS['classes'].items()}
     recs = vcf_records(os.path.join(run_dir, f'{name}.vcf.gz'))
@@ -1470,8 +1680,7 @@ def measured_run(work, name, ref, haps, card):
         f'{torch.cuda.max_memory_reserved() / 2**20:.0f} MiB; {smi_note(smi, before)}; on {card}')
     if not recs:
         fail(f'the {name} VCF has no records')
-    if launches['full'] <= 0 or launches['traceback'] <= 0:
-        fail(f'{name} did not launch the full/traceback kernels: {launches}')
+    require_main_path(name, launches)
     return run_dir, recs, launches, classes, rate
 
 
@@ -1500,11 +1709,10 @@ def drive_main_path(work, card, dev):
     stamp('phase 5')
     rref, rhap = synth.repeat_genome(REPEAT_REF_LEN, 18)
     rhaps = {'h1': ('rtig1', rhap)}
-    dp_kernels.launches_reset()
-    chain_scan.launches_reset()
+    launches_reset()
     affine_dp.stats_reset()
     run_dir, wall = run_sample(work, 'rep2', rref, rhaps, DEVICE)
-    rep_launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    rep_launches = launches_read()
     rep_classes = {k: tuple(v) for k, v in affine_dp.STATS['classes'].items()}
     for k in main_launches:
         main_launches[k] += rep_launches[k]
@@ -1621,8 +1829,7 @@ def phase_entry(card, dev):
     from pav_tpu_torch import entry
     from pav_tpu_torch.ops import chain_scan, dp_kernels as K
     from pav_tpu_torch.ops import kde
-    K.launches_reset()
-    chain_scan.launches_reset()
+    launches_reset()
     t0 = time.time()
     fn, args = entry.entry(device=dev)
     got = fn(*args)
@@ -1630,7 +1837,7 @@ def phase_entry(card, dev):
     dry = entry.dryrun_multichip(2, mesh=[dev, dev])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(K.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    launches = launches_read()
     for key in ('band', 'full', 'traceback', 'chain_scan'):
         if launches[key] <= 0:
             fail(f'entry points: no {key} launch on the card: {launches}')
@@ -1744,8 +1951,7 @@ def phase_chrom(work, card, dev):
         f'(the CLI\'s main, no profiler; {proc_wall:.2f} s with the process start), '
         f'{mbp / st["wall"]:.3f} contig Mbp/s on {card}; launches {launches}; resident gather '
         f'windows by flag 0-3 {st["gather_flags"]}')
-    if launches['full'] <= 0 or launches['traceback'] <= 0:
-        fail(f'{name} did not launch the full/traceback kernels: {launches}')
+    require_main_path(name, launches)
     log('stage seconds: ' + json.dumps(stage_seconds(os.path.join(d, 'run'), name)))
     log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
         {k: round(v, 3) for k, v in st['align_stats'].items()}))
@@ -1892,11 +2098,10 @@ def phase_wide(work, card, dev):
 
     ref, h1, h2, t1, t2 = synth.wide_genome(*synth.WIDE_SMALL)
     haps = {'h1': ('wtig1', h1), 'h2': ('wtig2', h2)}
-    dp_kernels.launches_reset()
-    chain_scan.launches_reset()
+    launches_reset()
     affine_dp.stats_reset()
     run_gpu, wall = run_sample(work, 'wide13a', ref, haps, DEVICE)
-    launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    launches = launches_read()
     launched_widths('wide13a', affine_dp.STATS['classes'])
     t0 = time.time()
     cpu = Pipeline(SeqStore({'chr1': ref}), {}, run_dir=os.path.join(work, 'wide13a', 'run_cpu'),
@@ -1975,8 +2180,7 @@ def asm_card_run(work, name, sample):
         if subset_chrom is not None:
             sharded.append(tuple(sorted(subset_chrom)))
         return merge(*args, subset_chrom=subset_chrom, **kwargs)
-    dp_kernels.launches_reset()
-    chain_scan.launches_reset()
+    launches_reset()
     affine_dp.stats_reset()
     tee = _Tee(sys.stderr)
     port_pipeline.merge_haplotypes = counted
@@ -1985,7 +2189,7 @@ def asm_card_run(work, name, sample):
             wall = run_cli([*argv, '--run-dir', run_dir, '--device', DEVICE])
     finally:
         port_pipeline.merge_haplotypes = merge
-    launches = dict(dp_kernels.LAUNCHES, chain_scan=chain_scan.LAUNCHES['chain_scan'])
+    launches = launches_read()
     return run_dir, wall, launches, affine_dp.STATS['gather_flags'], tee.getvalue(), sharded
 
 
@@ -2081,8 +2285,7 @@ def phase_asm(work, card, dev):
         fail('asm10: the VCF records differ from pav_tpu\'s on its accelerator branch')
     asm_paths('asm10', run_dir, 'asm10', flags, text, sharded)
     synth.hold_to_truth('asm10 VCF', vcf, asm10[3] + asm10[4])
-    if launches['full'] <= 0 or launches['traceback'] <= 0:
-        fail(f'asm10 did not launch the full/traceback kernels: {launches}')
+    require_main_path('asm10', launches)
     del tiny, asm10
     stamp('phase 14b')
     launches97 = phase_asm97(work, card, dev)
@@ -2096,8 +2299,8 @@ def phase_asm97(work, card, dev):
     wall, stage seconds, ALIGN_STATS in all and by haplotype, launches, the
     DP class table with each class timed alone, gather flags, density
     paths, the child's peak RSS, torch's peak allocation, nvidia-smi
-    samples; the sample's contig count and NG50. The full-width and
-    traceback kernels must launch, the run must take asm_paths' paths and
+    samples; the sample's contig count and NG50. The full-width, traceback
+    and seeding kernels must launch, the run must take asm_paths' paths and
     its VCF meet the floors. Returns its launches."""
     import torch
     from pav_tpu_torch import asmstat, synth
@@ -2134,8 +2337,7 @@ def phase_asm97(work, card, dev):
         f'{st["gather_flags"]}')
     if not recs:
         fail('the asm97 VCF has no records')
-    if launches['full'] <= 0 or launches['traceback'] <= 0:
-        fail(f'asm97 did not launch the full/traceback kernels: {launches}')
+    require_main_path('asm97', launches)
     log('stage seconds: ' + json.dumps(stage_seconds(run_dir, 'asm97')))
     log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
         {k: round(v, 3) for k, v in st['align_stats'].items()}))

@@ -29,6 +29,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 # C entry points: name -> (argtypes, restype); every pointer and the stream
 # pass as void*, every launcher returns cudaGetLastError().
@@ -57,6 +58,20 @@ SIGNATURES = {
     'pav_chain_scan': ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P], _I),
     # out (float[32]), iters, stream: the chain scan's dependency-chain probe
     'pav_chain_step_probe': ([_P, _I, _P], _I),
+    # elements a tile of the seeding passes (csrc/seed.cu)
+    'pav_seed_tile': ([], _I),
+    # codes, n, k, w, tile_count, tile_off, pos, key, strand, emit, stream
+    'pav_seed_sketch': ([_P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P], _I),
+    # counts, offsets, n, stream
+    'pav_seed_scan': ([_P, _P, _L, _P], _I),
+    # keys, n, tile_count, tile_off, uniq_keys, uniq_starts, emit, stream
+    'pav_seed_runs': ([_P, _L, _P, _P, _P, _P, _I, _P], _I),
+    # qkey, nq, uniq_keys, uniq_starts, n_uniq, max_occ, count, start,
+    # tile_count, stream
+    'pav_seed_probe': ([_P, _L, _P, _P, _L, _L, _P, _P, _P, _P], _I),
+    # qpos, qstrand, count, start, nq, tile_off, qlen, k, idx_chrom, idx_pos,
+    # idx_strand, out_q, out_key, stream
+    'pav_seed_fill': ([_P, _P, _P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P, _P], _I),
     'pav_cuda_error_string': ([_I], ctypes.c_char_p),
 }
 

@@ -1,21 +1,24 @@
 """Anchor collection and chain extraction.
 
-Seeds come from the minimizer index; the chain DP itself runs in the native
+Seeds come from the minimizer index (``index.sorted_anchors``: on the host,
+or on the device of a ``DeviceMinimizerIndex``). The chain DP itself runs
+in the native
 kernel behind pav_tpu_torch.ops.chain_scan, or in its scan on the aligner's
 device when the native library is missing. This module owns the cheap, irregular host work:
 strand transforms, grouping, backtracking parents into chains, and primary-chain
 selection (the reference ran minimap2 with --secondary=no:
 rules/align.snakefile:188).
 
-Copy of pav_tpu.align.aligner.chain with its chain DP import switched to the
-torch port (the reference module imports a jax scan).
+Port of pav_tpu.align.aligner.chain with its chain DP import switched to the
+torch port (the reference module imports a jax scan) and its seeding
+(``collect_anchors`` and the anchor sort) moved to the index.
 """
 
 import numpy as np
 
 from ... import spans
 from ...ops.chain_scan import chain_scores
-from .index import SKETCH_POOL, minimizers_parallel
+from .index import SKETCH_POOL, collect_anchors  # noqa: F401 (pav_tpu's chain has it)
 
 
 class Chain:
@@ -35,52 +38,6 @@ class Chain:
 
     def q_span(self):
         return int(self.qpos[0]), int(self.qpos[-1])
-
-
-def collect_anchors(qry_codes, index, max_occ=64):
-    """Minimizer anchors of one contig against the reference index.
-
-    :return: (qpos, rpos, chrom, rev) int arrays; qpos strand-transformed for
-        reverse hits so chains ascend in both coordinates.
-    """
-    k, w = index.k, index.w
-    with spans.span('chain.minimizers'):
-        qpos, qhash, qstrand = minimizers_parallel(qry_codes, k, w)
-    qlen = len(qry_codes)
-
-    hi = getattr(index, '_hash_index', None)
-    # The fused native path emits int32 anchor rows; scaffolds or contigs
-    # past 2^31 take the int64 numpy path below.
-    if (hi is not None
-            and qlen < (1 << 31)
-            and getattr(index, 'max_pos', 1 << 62) < (1 << 31)):
-        # Fused native path: probe + strand transform + row assembly in one C
-        # pass (skips four hit-sized numpy passes). Queries are independent ->
-        # chunk-parallel over the sketch pool (the probe releases the GIL).
-        def probe(sl):
-            return hi.anchors(qhash[sl], qpos[sl], qstrand[sl], qlen, k,
-                              max_occ, index.chrom_ids, index.positions,
-                              index.strands)
-
-        nq = len(qhash)
-        if nq > 262144:
-            step = (nq + 3) // 4
-            slices = [slice(i, min(i + step, nq)) for i in range(0, nq, step)]
-            parts = list(SKETCH_POOL.map(probe, slices))
-            return tuple(np.concatenate([p[i] for p in parts])
-                         for i in range(4))
-        return probe(slice(None))
-
-    q_idx, t_chrom, t_pos, t_strand = index.lookup(qhash, max_occ=max_occ)
-
-    if len(q_idx) == 0:
-        z = np.zeros(0, dtype=np.int64)
-        return z, z, z.astype(np.int32), np.zeros(0, dtype=bool)
-
-    a_qpos = qpos[q_idx]
-    rev = (qstrand[q_idx] != t_strand)
-    a_qpos = np.where(rev, qlen - a_qpos - k, a_qpos)
-    return a_qpos, t_pos, t_chrom, rev
 
 
 def _extract_chains(scores, parents, qpos, rpos, chrom, rev, base,
@@ -157,31 +114,12 @@ def find_chains(qry_codes, index, max_occ=64, lookback=64, max_dist=50000,
         runs a two-pass original-frame selection).
     """
     k = index.k
-    with spans.span('chain.anchors'):
-        qpos, rpos, chrom, rev = collect_anchors(qry_codes, index, max_occ)
+    qpos, rpos, group, chrom, rev = index.sorted_anchors(qry_codes, max_occ)
     n = len(qpos)
     if n == 0:
         return []
 
     from ... import native
-    with spans.span('chain.sort'):
-        res = native.sort_anchors(qpos, rpos, chrom, rev.astype(np.uint8))
-        if res is not None:
-            qpos, rpos, group, chrom, rev = res
-        else:
-            group = chrom.astype(np.int64) * 2 + rev.astype(np.int64)
-            if (group.max() < (1 << 7) and rpos.max() < (1 << 28)
-                    and qpos.max() < (1 << 28)):
-                # Composite u64 key: one argsort instead of three lexsort passes.
-                key = ((group.astype(np.uint64) << np.uint64(56))
-                       | (rpos.astype(np.uint64) << np.uint64(28))
-                       | qpos.astype(np.uint64))
-                order = np.argsort(key, kind='stable')
-            else:
-                order = np.lexsort((qpos, rpos, group))
-            qpos, rpos, group, rev = (qpos[order], rpos[order], group[order],
-                                      rev[order])
-            chrom = chrom[order]
 
     def chain_slab(lo, hi):
         """Chain DP + extraction over sorted anchors [lo, hi)."""

@@ -40,7 +40,7 @@ from ...align.table import ALIGN_COLUMNS, empty_align_table, sort_align_table
 
 from ...ops import affine_dp
 from .chain import find_chains
-from .index import MinimizerIndex
+from .index import build_index
 
 _MIN_WIDTH = 65
 
@@ -334,7 +334,7 @@ class Aligner:
         self.scoring = self.dp.scoring
         self.device = self.dp.device
         self.ladder = resolve_ladder(ladder, self.device)
-        self.index = MinimizerIndex(ref_store, k=self.k, w=self.w)
+        self.index = build_index(ref_store, self.k, self.w, self.device)
 
     # ------------------------------------------------------------------ align
 

@@ -11,7 +11,8 @@ pool task, the span of the thread that submitted it: ``parallel.pools``
 carries the context over), the thread, its start and end on
 ``time.time_ns()`` (the profiler's clock), the thread's CPU time, its minor
 and major faults and involuntary switches over the block
-(``getrusage(RUSAGE_THREAD)``), and the integer counts its caller gives.
+(``getrusage(RUSAGE_THREAD)``), and the counts its caller gives (integers,
+or a word such as the device a step ran on).
 
 Nothing is written while the program runs: ``Pipeline`` writes a sample's
 spans to ``<run_dir>/<sample>/spans.tsv`` (``write_tsv``), one row a span
@@ -77,7 +78,8 @@ class Span:
         return (self.end_ns - self.start_ns) / 1e9
 
     def row(self):
-        counts = ','.join(f'{k}={int(v)}' for k, v in self.counts.items())
+        counts = ','.join(f'{k}={v if isinstance(v, str) else int(v)}'
+                          for k, v in self.counts.items())
         return (self.id, self.parent, self.label, self.name, self.tid, self.start_ns,
                 self.end_ns, self.cpu_ns, self.minflt, self.majflt, self.nivcsw, self.tasks,
                 self.threads, self.run_ns, self.wait_ns, self.max_wait_ns, counts)
@@ -132,10 +134,12 @@ class span:
     def __enter__(self):
         s = self._span
         self._token = _CTX.set((self._rec, s.label, s))
+        # The clock first: the annotation's own start is then the next thing
+        # stamped, with no system call or first-use work of its own between.
+        s.begin()
         if torch.autograd.profiler._is_profiler_enabled:
             self._annotation = torch.profiler.record_function(s.name)
             self._annotation.__enter__()
-        s.begin()
         return s
 
     def __exit__(self, *exc):
@@ -149,11 +153,12 @@ class span:
 
 
 def add(**counts):
-    """Add to the counts of this thread's innermost open span."""
+    """Add to the counts of this thread's innermost open span (a string
+    value, such as ``on=cuda``, is set)."""
     s = _CTX.get()[2]
     if s is not None:
         for k, v in counts.items():
-            s.counts[k] = s.counts.get(k, 0) + v
+            s.counts[k] = v if isinstance(v, str) else s.counts.get(k, 0) + v
 
 
 class PoolUse:

@@ -157,6 +157,32 @@ def test_pool_rows_sum_their_tasks(run):
     assert _one(run['rows'], 'pool:haplotypes')['TASKS'] == '2'
 
 
+def _counts(row):
+    return dict(kv.split('=') for kv in row['COUNTS'].split(',')) if row['COUNTS'] else {}
+
+
+def test_seeding_spans_say_where_and_how_many(run):
+    """On the CPU the index and every contig's anchors are made on the host:
+    ``S1:index`` carries the index's minimizers and ``on=cpu``, and each
+    contig's ``chain.anchors`` its anchors and ``on=cpu``; a contig's
+    anchors are the sum of its chain DP slabs'."""
+    from pav_tpu_torch.align.aligner.index import MinimizerIndex
+    from pav_tpu_torch.io.fasta import SeqStore
+    rows = run['rows']
+    index = _counts(_one(rows, 'S1:index'))
+    want = MinimizerIndex(SeqStore.from_file(str(run['dir'] / 'ref.fa'))).n_minimizers()
+    assert index == {'minimizers': str(want), 'on': 'cpu'}
+    anchors = [r for r in rows if r['NAME'] == 'chain.anchors']
+    assert len(anchors) == len(run['lengths'])
+    assert all(_counts(r)['on'] == 'cpu' for r in anchors)
+    by_id = {r['ID']: r for r in rows}
+    for r in anchors:
+        slabs = [int(_counts(d)['anchors']) for d in rows
+                 if d['NAME'] == 'chain.dp' and d['PARENT'] == r['PARENT']]
+        assert int(_counts(r)['anchors']) == sum(slabs) > 0
+        assert by_id[r['PARENT']]['NAME'] == 'align.chains'
+
+
 def test_rows_stay_in_the_budget(run):
     assert len(run['rows']) <= 1000
     assert len({r['ID'] for r in run['rows']}) == len(run['rows'])
