@@ -229,6 +229,13 @@ class MinimizerIndex:
     def n_minimizers(self):
         return len(self.hashes)
 
+    def nbytes(self):
+        """The bytes of the table's arrays on the host (the native probe
+        table's own not counted)."""
+        return sum(a.nbytes for a in (self.hashes, self.chrom_ids, self.positions,
+                                      self.strands, self.uniq_hashes, self.uniq_starts,
+                                      self.uniq_counts))
+
     def lookup(self, query_hashes, max_occ=64):
         """Anchor hits for an array of query minimizer hashes.
 
@@ -340,6 +347,10 @@ class DeviceMinimizerIndex:
     def n_minimizers(self):
         return self._n
 
+    def nbytes(self):
+        """The bytes of the table on its device (``table``)."""
+        return sum(t.numel() * t.element_size() for t in self.table())
+
     def table(self):
         """The probe's table (``seed.anchors``)."""
         return (self.uniq_keys, self.uniq_starts, self.chrom_ids, self.positions,
@@ -380,12 +391,14 @@ def build_index(ref_store, k, w, device):
     """The aligner's index on ``device``: a ``DeviceMinimizerIndex`` on a
     CUDA device where the kernels take k, w and every chromosome's
     positions, else a host ``MinimizerIndex``. Adds its size and where it
-    lives to the open span (``minimizers``, ``on``)."""
+    lives to the open span (``chroms``, ``minimizers``, ``index_bytes``,
+    ``on``)."""
     device = torch.device(device)
     if (device.type == 'cuda' and k <= seed.MAX_K and w <= seed.MAX_W
             and all(ref_store.length(c) < INT32_LIMIT for c in ref_store.names())):
         index = DeviceMinimizerIndex(ref_store, k=k, w=w, device=device)
     else:
         index = MinimizerIndex(ref_store, k=k, w=w)
-    spans.add(minimizers=index.n_minimizers(), on=index.device.type)
+    spans.add(chroms=len(index.chrom_names), minimizers=index.n_minimizers(),
+              index_bytes=index.nbytes(), on=index.device.type)
     return index

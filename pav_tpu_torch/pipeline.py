@@ -125,7 +125,7 @@ class Pipeline:
         # The host spans of this engine's runs (written per sample beside
         # timings.tsv); the reference's tables are the run's first span.
         self.spans = spans.Recorder()
-        with self.spans.active(), spans.span('run:reference'):
+        with self.spans.active(), spans.span('run:reference', memory=True):
             self.ref_store = ref if isinstance(ref, SeqStore) else SeqStore.from_file(ref)
             self.ref_info = vcf_mod.ref_info_table(self.ref_store)
             self.n_gaps = self.ref_store.n_gap_table()
@@ -152,8 +152,9 @@ class Pipeline:
 
     @contextlib.contextmanager
     def _timed(self, label, stage):
-        """Time a stage as span ``label:stage`` into ``timings``."""
-        with spans.span(f'{label}:{stage}', label=label) as sp:
+        """Time a stage as span ``label:stage`` into ``timings``, with the
+        process's memory counts (``spans.memory_kib``)."""
+        with spans.span(f'{label}:{stage}', label=label, memory=True) as sp:
             yield sp
         self.timings[(label, stage)] = round(sp.seconds, 3)
 
@@ -429,7 +430,7 @@ class Pipeline:
         qry_filters = qry_filters or {}
         hap_results = {}
         to_run = []
-        with spans.span(f'{asm_name}:load', label=asm_name):
+        with spans.span(f'{asm_name}:load', label=asm_name, memory=True):
             for hap, inp in hap_inputs.items():
                 if resume:
                     loaded = self.resume_haplotype(asm_name, hap, cfg,
@@ -450,9 +451,9 @@ class Pipeline:
         # work (the reference fans haplotypes out as independent cluster jobs:
         # SURVEY.md §2.8). The shared index is built before the threads start.
         if to_run:
-            with spans.span(f'{asm_name}:index', label=asm_name):
+            with spans.span(f'{asm_name}:index', label=asm_name, memory=True):
                 self.aligner
-        with spans.span(f'{asm_name}:haplotypes', label=asm_name):
+        with spans.span(f'{asm_name}:haplotypes', label=asm_name, memory=True):
             with pools.Executor('haplotypes', min(len(to_run), 4)) as pool:
                 futures = {
                     hap: pool.submit(self.run_haplotype, store, hap, cfg,
@@ -471,7 +472,7 @@ class Pipeline:
         art_thread = None
         if self.run_dir:
             def write_hap_artifacts():
-                with spans.span(f'{asm_name}:hap_artifacts', label=asm_name):
+                with spans.span(f'{asm_name}:hap_artifacts', label=asm_name, memory=True):
                     self._write_hap_artifacts(asm_name, hap_results, dict(to_run))
             art_thread = pools.start_thread(write_hap_artifacts)
 
@@ -556,7 +557,11 @@ class Pipeline:
         """Diploid merge of every (varsvtype, tier), sharded by length-balanced
         chromosome batches (reference: rules/call.snakefile:856-905 packs
         chromosomes into MERGE_BATCH_COUNT bins and merges each as an
-        independent job; here each bin is a thread-pool task)."""
+        independent job). Here each callset tier is one task of the merge
+        pool (span ``merge.job``); where its calls lie in more than one
+        batch, it merges those batches one after another inside the task
+        (a ``merge.shard`` span each), then concatenates and sorts them
+        (``merge.concat``)."""
         from .call.batching import merge_batch_table
 
         batch_df = merge_batch_table(dict(self.ref_store.fai()))
@@ -574,34 +579,39 @@ class Pipeline:
                 callable_list = [hap_results[h].callable for h in hap_list]
                 jobs.append(((varsvtype, tier), bed_list, callable_list, strategy))
 
-        def run_job(bed_list, callable_list, strategy):
+        def run_job(key, bed_list, callable_list, strategy):
             # Only shard over batches whose chromosomes actually hold calls;
             # per-chromosome merges are independent (matching never crosses
             # chromosomes), so concat+sort reproduces the unsharded result.
+            beds = [bed for bed in bed_list if bed is not None and bed.shape[0]]
             present = set()
-            for bed in bed_list:
-                if bed is not None and bed.shape[0]:
-                    present.update(bed['#CHROM'].unique())
+            for bed in beds:
+                present.update(bed['#CHROM'].unique())
             active = [cb & present for cb in chrom_batches if cb & present]
+            spans.add(type=key[0], tier=key[1], calls=sum(bed.shape[0] for bed in beds),
+                      shards=len(active))
             if len(active) <= 1:
                 return merge_haplotypes(bed_list, callable_list, hap_list, strategy)
-            parts = [
-                merge_haplotypes(bed_list, callable_list, hap_list, strategy,
-                                 subset_chrom=chroms)
-                for chroms in active
-            ]
-            out = pd.concat(parts, axis=0)
-            out = out.sort_values(['#CHROM', 'POS', 'END', 'ID'])
-            out.index.name = 'INDEX'
+            parts = []
+            for chroms in active:
+                with spans.span('merge.shard', chroms='+'.join(sorted(chroms)),
+                                calls=sum(int(bed['#CHROM'].isin(chroms).sum())
+                                          for bed in beds)):
+                    parts.append(merge_haplotypes(bed_list, callable_list, hap_list,
+                                                  strategy, subset_chrom=chroms))
+            with spans.span('merge.concat', shards=len(parts)):
+                out = pd.concat(parts, axis=0)
+                out = out.sort_values(['#CHROM', 'POS', 'END', 'ID'])
+                out.index.name = 'INDEX'
             return out
 
         merged = {}
         self._logmsg(
             f'{asm_name}: merging {len(jobs)} callset tiers across {hap_list} '
             f'({len(chrom_batches)} chromosome batches)')
-        with pools.Executor('merge', 4) as pool:
+        with pools.Executor('merge', 4, task_span='merge.job') as pool:
             futures = {
-                key: pool.submit(run_job, bed_list, callable_list, strategy)
+                key: pool.submit(run_job, key, bed_list, callable_list, strategy)
                 for key, bed_list, callable_list, strategy in jobs
             }
             for key, fut in futures.items():

@@ -21,6 +21,12 @@ THREADS, RUN_NS, WAIT_NS and MAX_WAIT_NS, with CPU_NS and the fault and
 switch counts of its tasks' threads; a timed task of a pool is a span whose
 WAIT_NS is its queue wait. For any other span TASKS and THREADS are 0 and
 RUN_NS is its own duration.
+
+A span opened with ``memory=True`` (the pipeline's stage spans) also counts
+the process's memory in KiB: its peak resident set when it opens
+(``hwm0_kib``) and when it closes (``hwm_kib``), and its resident set
+(VmRSS, read from ``/proc/self/status``) when it closes (``rss_kib``);
+where that file reports no VmRSS the counts are left out (``memory_kib``).
 """
 
 import contextlib
@@ -39,6 +45,33 @@ COLUMNS = ('ID', 'PARENT', 'LABEL', 'NAME', 'TID', 'START_NS', 'END_NS', 'CPU_NS
 # (recorder or None, label, innermost open Span or None) of this context.
 _CTX = contextvars.ContextVar('pav_tpu_torch_span', default=(None, '', None))
 _IDS = itertools.count(1)
+_STATUS = '/proc/self/status'
+_PEAK_LOCK = threading.Lock()
+_peak_kib = 0
+
+
+def memory_kib():
+    """(peak, current) resident set of this process in KiB, or None where
+    ``/proc/self/status`` reports no VmRSS. The peak is the largest of
+    ``getrusage``'s ``ru_maxrss`` (the high-water mark the benchmark's
+    ``peak_rss_gib`` reads) and every VmRSS read so far: the kernel keeps
+    its mark from per-CPU counters summed approximately, so the mark can
+    trail an exact VmRSS by a few hundred KiB. The peak so reported never
+    falls and never lies below the resident set."""
+    global _peak_kib
+    try:
+        with open(_STATUS, 'rb') as fh:
+            text = fh.read()
+    except OSError:
+        return None
+    for line in text.split(b'\n'):
+        if line.startswith(b'VmRSS:'):
+            rss = int(line.split()[1])
+            with _PEAK_LOCK:
+                _peak_kib = max(_peak_kib, rss,
+                                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+                return _peak_kib, rss
+    return None
 
 
 class Span:
@@ -118,21 +151,27 @@ class span:
     """Time the block as span ``name`` (see the module docstring). ``label``
     sets the sample label of this span and its children (default: the
     parent's); ``wait_ns`` is a pool task's queue wait. ``with`` yields the
-    Span, whose ``counts`` the block may add to. The ``record_function`` is
+    Span, whose ``counts`` the block may add to. ``memory`` adds the
+    memory counts of the module docstring. The ``record_function`` is
     opened only while a profiler runs: it costs more than the rest of the
     span and records nothing otherwise."""
 
-    __slots__ = ('_span', '_rec', '_token', '_annotation')
+    __slots__ = ('_span', '_rec', '_token', '_annotation', '_memory')
 
-    def __init__(self, name, label=None, wait_ns=0, **counts):
+    def __init__(self, name, label=None, wait_ns=0, memory=False, **counts):
         rec, outer, parent = _CTX.get()
         self._rec = rec
         self._span = Span(name, outer if label is None else label, parent, counts)
         self._span.wait_ns = self._span.max_wait_ns = wait_ns
         self._annotation = None
+        self._memory = memory
 
     def __enter__(self):
         s = self._span
+        if self._memory:
+            mem = memory_kib()
+            if mem is not None:
+                s.counts['hwm0_kib'] = mem[0]
         self._token = _CTX.set((self._rec, s.label, s))
         # The clock first: the annotation's own start is then the next thing
         # stamped, with no system call or first-use work of its own between.
@@ -146,6 +185,10 @@ class span:
         self._span.finish()
         if self._annotation is not None:
             self._annotation.__exit__(*exc)
+        if self._memory:
+            mem = memory_kib()
+            if mem is not None:
+                self._span.counts['hwm_kib'], self._span.counts['rss_kib'] = mem
         _CTX.reset(self._token)
         if self._rec is not None:
             self._rec.append(self._span)

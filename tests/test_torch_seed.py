@@ -79,8 +79,21 @@ def test_index_span_says_where_and_how_many(case):
     with spans.span('S:index') as sp:
         built = build_index(ref, 19, 10, 'cpu')
     assert isinstance(built, MinimizerIndex)
-    assert sp.counts == {'minimizers': built.n_minimizers(), 'on': 'cpu'}
+    assert sp.counts == {'chroms': len(ref.names()), 'minimizers': built.n_minimizers(),
+                         'index_bytes': built.nbytes(), 'on': 'cpu'}
     assert built.n_minimizers() == len(built.hashes) > 0
+
+
+def test_index_bytes_count_each_table(case):
+    """``nbytes``: the host index's seven arrays; the device index's five
+    tensors of the probe's table (here on the plain versions)."""
+    ref, _ = case
+    host = MinimizerIndex(ref, 19, 10)
+    dev = DeviceMinimizerIndex(ref, 19, 10, device=CPU)
+    n = host.n_minimizers()
+    assert host.nbytes() == n * (8 + 4 + 8 + 1) + len(host.uniq_hashes) * (8 + 8 + 8)
+    assert dev.nbytes() == n * (4 + 4 + 1) + len(dev.uniq_keys) * 8 + (len(dev.uniq_keys) + 1) * 8
+    assert len(dev.uniq_keys) == len(host.uniq_hashes)
 
 
 def test_anchor_spans_say_where_and_how_many(case):

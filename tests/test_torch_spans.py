@@ -5,9 +5,10 @@ The 200 kb diploid sample of ``test_torch_profile.py``, with h2 cut into two
 contigs so that its planning pool runs on threads, goes through the CLI on
 the CPU once, inside a CPU ``torch.profiler`` (which records the thread that
 opened it). The run writes ``spans.tsv`` beside ``timings.tsv``; the tests
-hold the spans to the timings, the threads, the pools, the profiler's clock
-and the row budget, and run the four readers in ``benchmark/layers`` that
-read them on a record of the run.
+hold the spans to the timings, the threads, the pools, the profiler's clock,
+the memory counts and the row budget, and run the readers in
+``benchmark/layers`` that read them on a record of the run. A second sample
+of two chromosomes takes the merge's sharded branch.
 """
 
 import csv
@@ -17,6 +18,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import pytest
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -26,7 +28,7 @@ from pav_tpu_torch import spans
 from pav_tpu_torch.align.aligner import core
 from pav_tpu_torch.parallel import pools
 
-from helpers import write_two_hap_sample
+from helpers import Mutator, random_seq, write_two_hap_sample
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HAP_STAGES = ['align', 'trim', 'depth', 'cigar_call', 'largesv', 'inv_scan', 'integrate']
@@ -36,7 +38,9 @@ MAIN_SPANS = ['run:reference', 'S1:load', 'S1:index', 'S1:haplotypes', 'S1:merge
               'S1:artifacts']
 # Each reader and the range its reading must lie in on this run.
 READERS = {'pipeline.load_ms_per_mbp': (0.0, 1e6), 'align.index_ms_per_mbp': (0.0, 1e6),
-           'align.pool_wait_share': (0.0, 100.0), 'call.cpu_share': (0.0, 100.5)}
+           'align.pool_wait_share': (0.0, 100.0), 'call.cpu_share': (0.0, 100.5),
+           'merge.critical_share': (0.0, 100.0), 'memory.sample_rise_gib': (-1e-9, 1e3)}
+MEMORY = ('hwm0_kib', 'hwm_kib', 'rss_kib')
 
 
 @pytest.fixture(scope='module')
@@ -148,8 +152,11 @@ def test_span_starts_on_the_profilers_clock(run, name):
 
 
 def test_pool_rows_sum_their_tasks(run):
+    """Pools without a task span sum their tasks into one row a use; the
+    merge pool's tasks are spans of their own (``merge.job``)."""
     pool_rows = [r for r in run['rows'] if r['NAME'].startswith('pool:')]
-    assert {'pool:haplotypes', 'pool:merge'} <= {r['NAME'] for r in pool_rows}
+    assert 'pool:haplotypes' in {r['NAME'] for r in pool_rows}
+    assert 'pool:merge' not in {r['NAME'] for r in pool_rows}
     for r in pool_rows:
         assert int(r['TASKS']) >= 1 and 1 <= int(r['THREADS']) <= int(r['TASKS'])
         assert 0 <= int(r['MAX_WAIT_NS']) <= int(r['WAIT_NS'])
@@ -170,8 +177,10 @@ def test_seeding_spans_say_where_and_how_many(run):
     from pav_tpu_torch.io.fasta import SeqStore
     rows = run['rows']
     index = _counts(_one(rows, 'S1:index'))
-    want = MinimizerIndex(SeqStore.from_file(str(run['dir'] / 'ref.fa'))).n_minimizers()
-    assert index == {'minimizers': str(want), 'on': 'cpu'}
+    want = MinimizerIndex(SeqStore.from_file(str(run['dir'] / 'ref.fa')))
+    assert {k: v for k, v in index.items() if k not in MEMORY} == {
+        'chroms': '1', 'minimizers': str(want.n_minimizers()),
+        'index_bytes': str(want.nbytes()), 'on': 'cpu'}
     anchors = [r for r in rows if r['NAME'] == 'chain.anchors']
     assert len(anchors) == len(run['lengths'])
     assert all(_counts(r)['on'] == 'cpu' for r in anchors)
@@ -181,6 +190,148 @@ def test_seeding_spans_say_where_and_how_many(run):
                  if d['NAME'] == 'chain.dp' and d['PARENT'] == r['PARENT']]
         assert int(_counts(r)['anchors']) == sum(slabs) > 0
         assert by_id[r['PARENT']]['NAME'] == 'align.chains'
+
+
+def test_merge_jobs_are_the_merge_pools_tasks(run):
+    """Each callset tier is one task of the merge pool, a ``merge.job`` span
+    with its queue wait, under the sample's merge stage; on one chromosome
+    no job shards."""
+    rows = run['rows']
+    merge = _one(rows, 'S1:merge')
+    jobs = [r for r in rows if r['NAME'] == 'merge.job']
+    assert len(jobs) == 8
+    assert sorted((_counts(j)['type'], _counts(j)['tier']) for j in jobs) == sorted(
+        (t, tier) for t in ('svindel_ins', 'svindel_del', 'sv_inv', 'snv_snv')
+        for tier in ('pass', 'fail'))
+    for j in jobs:
+        assert j['PARENT'] == merge['ID'] and j['LABEL'] == 'S1'
+        assert int(j['WAIT_NS']) >= 0 and int(j['TASKS']) == 0
+        assert int(merge['START_NS']) <= int(j['START_NS']) <= int(j['END_NS']) \
+            <= int(merge['END_NS'])
+        assert int(_counts(j)['shards']) <= 1 and int(_counts(j)['calls']) >= 0
+    assert sum(int(_counts(j)['calls']) for j in jobs) >= 5
+    assert not [r for r in rows if r['NAME'] in ('merge.shard', 'merge.concat')]
+
+
+def test_stage_spans_count_memory(run):
+    """Every sample and haplotype stage span carries the process's peak
+    and resident set; a span's peak never falls while it runs, and along
+    the main thread's stage spans it never falls either."""
+    rows = run['rows']
+    stages = [f'{label}:{stage}' for label, stage in STAGES] + [
+        'run:reference', 'S1:load', 'S1:index', 'S1:haplotypes', 'S1:hap_artifacts']
+    for name in stages:
+        c = _counts(_one(rows, name))
+        assert set(MEMORY) <= set(c), name
+        assert 0 < int(c['hwm0_kib']) <= int(c['hwm_kib']), name
+        assert 0 < int(c['rss_kib']) <= int(c['hwm_kib']), name
+    main = _one(rows, 'run:reference')['TID']
+    on_main = sorted((int(r['END_NS']), int(_counts(r)['hwm_kib'])) for r in rows
+                     if r['TID'] == main and 'hwm_kib' in _counts(r))
+    assert len(on_main) >= len(MAIN_SPANS)
+    peaks = [h for _, h in on_main]
+    assert peaks == sorted(peaks)
+    for r in rows:
+        c = _counts(r)
+        if 'hwm0_kib' in c:
+            assert int(c['hwm0_kib']) <= int(c['hwm_kib'])
+
+
+def test_memory_peak_from_rusage_without_vmhwm(monkeypatch, tmp_path):
+    """The peak is ``ru_maxrss`` whatever the status file says of VmHWM,
+    raised to any VmRSS read above it, and it never falls; a file without
+    VmRSS gives no counts."""
+    import resource
+    status = tmp_path / 'status'
+    status.write_text('Name:\tpython\nVmHWM:\t    30 kB\nVmRSS:\t    12 kB\n')
+    monkeypatch.setattr(spans, '_STATUS', str(status))
+    monkeypatch.setattr(spans, '_peak_kib', 0)
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    hwm, rss = spans.memory_kib()
+    assert rss == 12 and hwm >= before > 30
+    big = 1 << 40
+    status.write_text(f'Name:\tpython\nVmHWM:\t    30 kB\nVmRSS:\t {big} kB\n')
+    assert spans.memory_kib() == (big, big)
+    status.write_text('Name:\tpython\nVmRSS:\t    12 kB\n')
+    assert spans.memory_kib() == (big, 12)
+    status.write_text('Name:\tpython\nVmHWM:\t    30 kB\n')
+    assert spans.memory_kib() is None
+
+
+def test_memory_counts_left_out_without_status(monkeypatch):
+    monkeypatch.setattr(spans, '_STATUS', '/nonexistent/status')
+    assert spans.memory_kib() is None
+    with spans.span('x', memory=True) as sp:
+        pass
+    assert sp.counts == {}
+
+
+def _two_chromosome_sample(d):
+    """chr1 and chr2 (200 kb and 120 kb), each haplotype one contig a
+    chromosome with an SNV and an indel on each: calls on both."""
+    from pav_tpu_torch import seqcodec as torch_codec
+    from pav_tpu_torch.io.fasta import write_fasta
+    rng = np.random.default_rng(11)
+    ref = {'chr1': random_seq(200000, rng), 'chr2': random_seq(120000, rng)}
+    haps = {}
+    for h, (snv, indel) in enumerate(((20000, 60000), (45000, 80000))):
+        for chrom, seq in ref.items():
+            m = Mutator(seq)
+            m.snv(snv, rng=rng)
+            if h:
+                m.ins(indel, random_seq(12, rng))
+            else:
+                m.dele(indel, 40)
+            haps[f'h{h + 1}', chrom] = m.finish()
+    write_fasta({c: torch_codec.decode(v) for c, v in ref.items()}, str(d / 'ref.fa'))
+    for h in ('h1', 'h2'):
+        write_fasta({f'{h}_{c}': torch_codec.decode(haps[h, c]) for c in ref},
+                    str(d / f'{h}.fa'))
+    (d / 'asm.tsv').write_text(f'NAME\tHAP_h1\tHAP_h2\nS2\t{d / "h1.fa"}\t{d / "h2.fa"}\n')
+    return ['--ref', str(d / 'ref.fa'), '--assemblies', str(d / 'asm.tsv'), '--device', 'cpu',
+            '--run-dir', str(d / 'run')]
+
+
+@pytest.fixture(scope='module')
+def two_chrom(tmp_path_factory):
+    d = tmp_path_factory.mktemp('two_chrom')
+    assert cli.main(_two_chromosome_sample(d)) == 0
+    with open(d / 'run' / 'S2' / 'spans.tsv', newline='') as fh:
+        return {'dir': d, 'rows': list(csv.DictReader(fh, delimiter='\t'))}
+
+
+def test_merge_shards_sit_under_their_job(two_chrom):
+    """Where a tier's calls lie on both chromosomes its job shards: a
+    ``merge.shard`` span a chromosome batch, naming its chromosomes and
+    counting its calls, then ``merge.concat``, both under the job."""
+    rows = two_chrom['rows']
+    by_id = {r['ID']: r for r in rows}
+    assert _counts(_one(rows, 'S2:index'))['chroms'] == '2'
+    sharded = [j for j in rows if j['NAME'] == 'merge.job' and _counts(j)['shards'] == '2']
+    assert {_counts(j)['type'] for j in sharded} >= {'snv_snv'}
+    for j in sharded:
+        shards = [r for r in rows if r['NAME'] == 'merge.shard' and r['PARENT'] == j['ID']]
+        concat = [r for r in rows if r['NAME'] == 'merge.concat' and r['PARENT'] == j['ID']]
+        assert sorted(_counts(r)['chroms'] for r in shards) == ['chr1', 'chr2']
+        assert sum(int(_counts(r)['calls']) for r in shards) == int(_counts(j)['calls'])
+        assert len(concat) == 1 and _counts(concat[0])['shards'] == '2'
+        assert max(int(r['END_NS']) for r in shards) <= int(concat[0]['START_NS'])
+        assert j['TID'] == concat[0]['TID'] == shards[0]['TID'] == shards[1]['TID']
+    for r in rows:
+        if r['NAME'] in ('merge.shard', 'merge.concat'):
+            assert by_id[r['PARENT']]['NAME'] == 'merge.job'
+
+
+def test_shard_reader_reads_the_sharded_merge(run, two_chrom):
+    """``merge.shard_ms_per_mbp`` reads the sharded sample and nothing on
+    the sample of one chromosome."""
+    reader = _reader('merge.shard_ms_per_mbp')
+    sharded = {'samples': [{'name': 'S2', 'run_dir': str(two_chrom['dir'] / 'run')}],
+               'contig_mbp': 0.64}
+    one = {'samples': [{'name': 'S1', 'run_dir': str(run['dir'] / 'run')}],
+           'contig_mbp': sum(run['lengths'].values()) / 1e6}
+    assert reader.read(sharded) > 0
+    assert reader.read(one) is None
 
 
 def test_rows_stay_in_the_budget(run):
