@@ -290,6 +290,26 @@ def require_main_path(name, launches):
         fail(f'{name} did not launch {missing}: {launches}')
 
 
+def require_native_text(run_dir, name, fastas=3):
+    """Fail unless the text codec read every FASTA of sample ``name`` (the
+    reference and each haplotype: ``fastas`` ``io.fasta`` spans) and wrote
+    every table under the sample's directory and its VCF (one
+    ``emit.table`` span a file), all on its native path."""
+    import csv
+    with open(os.path.join(run_dir, name, 'spans.tsv'), newline='') as fh:
+        rows = [r for r in csv.DictReader(fh, delimiter='\t')
+                if r['NAME'] in ('io.fasta', 'emit.table')]
+    reads = sum(r['NAME'] == 'io.fasta' for r in rows)
+    files = 1 + sum(f.endswith('.tsv.gz') for _, _, names in os.walk(os.path.join(run_dir, name))
+                    for f in names)
+    off = [r['COUNTS'] for r in rows if 'on=native' not in r['COUNTS'].split(',')]
+    if reads != fastas or len(rows) - reads != files or off:
+        fail(f'{name}: {reads} io.fasta spans for {fastas} FASTAs, {len(rows) - reads} '
+             f'emit.table spans for {files} files (tables and VCF), not native: {off[:3]}')
+    log(f'{name}: {reads} io.fasta and {len(rows) - reads} emit.table spans '
+        f'({files} files), all on=native')
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -1651,8 +1671,9 @@ def measured_run(work, name, ref, haps, card):
     13b): its wall and contig Mbp/s, launches (read from 0 just before the
     run to just after it), stage seconds, ALIGN_STATS, torch's peak device
     memory and nvidia-smi samples beside it; the full-width, traceback and
-    seeding kernels must run (require_main_path). Returns (run dir, VCF
-    records, launches, DP class table, contig Mbp/s)."""
+    seeding kernels must run (require_main_path), and the text codec read
+    and wrote every file natively (require_native_text). Returns (run dir,
+    VCF records, launches, DP class table, contig Mbp/s)."""
     import torch
     from pav_tpu_torch.align.aligner import core
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
@@ -1681,6 +1702,7 @@ def measured_run(work, name, ref, haps, card):
     if not recs:
         fail(f'the {name} VCF has no records')
     require_main_path(name, launches)
+    require_native_text(run_dir, name)
     return run_dir, recs, launches, classes, rate
 
 

@@ -28,14 +28,13 @@ import numpy as np
 import pandas as pd
 import torch
 
-from . import constants, seqcodec, spans, vcf as vcf_mod
+from . import constants, seqcodec, spans, textcodec, vcf as vcf_mod
 from .align.aligner import Aligner
 from .align.lift import AlignLift
 from .align.table import depth_table, finalize_align_table
 from .align.trim import trim_alignments
 from .assembly_table import (get_filter_spec, get_hap_list, load_filter_regions,
-                             load_haplotype_seqs, read_assembly_table,
-                             get_asm_config_override)
+                             read_assembly_table, get_asm_config_override)
 from .call import inv_flag
 from .call.cigar_calls import make_insdel_snv_calls
 from .call.integrate import callable_regions, get_merge_params, integrate_sources, merge_haplotypes
@@ -126,7 +125,8 @@ class Pipeline:
         # timings.tsv); the reference's tables are the run's first span.
         self.spans = spans.Recorder()
         with self.spans.active(), spans.span('run:reference', memory=True):
-            self.ref_store = ref if isinstance(ref, SeqStore) else SeqStore.from_file(ref)
+            self.ref_store = (ref if isinstance(ref, SeqStore)
+                              else SeqStore(textcodec.read_seq_file(ref)))
             self.ref_info = vcf_mod.ref_info_table(self.ref_store)
             self.n_gaps = self.ref_store.n_gap_table()
             self.n_index = (build_interval_index_by_chrom(self.n_gaps)
@@ -440,7 +440,7 @@ class Pipeline:
                         hap_results[hap] = loaded
                         continue
                 store = (inp if isinstance(inp, SeqStore)
-                         else load_haplotype_seqs(inp, asm_name, hap))
+                         else textcodec.load_haplotype_seqs(inp, asm_name, hap))
                 if not store.names():
                     self._logmsg(f'{asm_name}/{hap}: no input sequence, skipping haplotype')
                     continue
@@ -467,8 +467,9 @@ class Pipeline:
         hap_list = list(hap_results.keys())
 
         # Per-hap artifacts depend only on finished haplotypes: write them on
-        # a background thread while the diploid merge runs (gzip releases the
-        # GIL). Only the merged_* tables wait for the merge.
+        # a background thread while the diploid merge runs (the text codec
+        # formats and zlib deflates without the GIL). Only the merged_*
+        # tables wait for the merge.
         art_thread = None
         if self.run_dir:
             def write_hap_artifacts():
@@ -532,9 +533,8 @@ class Pipeline:
         for inv_call in res.inv_calls:
             safe_id = inv_call.id.replace('/', '_')
             if inv_call.df is not None:
-                inv_call.df.to_csv(
-                    os.path.join(dens_dir, f'{safe_id}.tsv.gz'),
-                    sep='\t', index=False, compression={'method': 'gzip', 'compresslevel': 2})
+                textcodec.write_table(inv_call.df, os.path.join(dens_dir, f'{safe_id}.tsv.gz'),
+                                      f'{os.path.basename(hdir)}/inv_density/{safe_id}')
                 if figures:
                     plot_mod.density_plot(
                         inv_call.df, title=inv_call.id,
@@ -622,8 +622,8 @@ class Pipeline:
         base = os.path.join(self.run_dir, asm_name)
         os.makedirs(base, exist_ok=True)
         for (varsvtype, tier), df in merged.items():
-            df.to_csv(os.path.join(base, f'merged_{varsvtype}_{tier}.tsv.gz'),
-                      sep='\t', index=False, compression={'method': 'gzip', 'compresslevel': 2})
+            name = f'merged_{varsvtype}_{tier}'
+            textcodec.write_table(df, os.path.join(base, f'{name}.tsv.gz'), name)
 
     def _write_hap_artifacts(self, asm_name, hap_results, stores=None):
         """Persist per-haplotype run outputs.
@@ -652,12 +652,13 @@ class Pipeline:
                     ('lg_inv', res.df_lg_inv), ('inv_flag', res.df_flag),
                     ('sv_inv', res.df_inv), ('callable', res.callable)):
                 if df is not None:
-                    df.to_csv(os.path.join(hdir, f'{name}.tsv.gz'), sep='\t',
-                              index=False, compression={'method': 'gzip', 'compresslevel': 2})
+                    textcodec.write_table(df, os.path.join(hdir, f'{name}.tsv.gz'),
+                                          f'{hap}/{name}')
             if res.fail_redundant:
                 for varsvtype, df in res.fail_redundant.items():
-                    df.to_csv(os.path.join(hdir, f'fail_redundant_{varsvtype}.tsv.gz'),
-                              sep='\t', index=False, compression={'method': 'gzip', 'compresslevel': 2})
+                    name = f'fail_redundant_{varsvtype}'
+                    textcodec.write_table(df, os.path.join(hdir, f'{name}.tsv.gz'),
+                                          f'{hap}/{name}')
             # Per-inversion density tables + dot/density figures (reference:
             # rules/call_inv.snakefile:279-282, rules/figures.snakefile:97-269).
             try:

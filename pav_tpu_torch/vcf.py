@@ -5,6 +5,12 @@ rules/vcf.snakefile:26-99): symbolic ALT for inversions, anchor-base REF/ALT
 construction for INS/DEL, 1-based SNV POS shift, the INFO field vocabulary,
 FILTER validation against the known set, and contig headers from the reference
 table. Output is BGZF (tabix-compatible blocks) via pav_tpu.io.bgzf.
+
+The assembled columns go to the port's text codec (``textcodec.write_vcf``:
+the lines, their BGZF blocks and the tabix index, off the interpreter lock,
+as span ``emit.table`` named ``vcf``); the Python writer runs where the
+codec cannot, with the same bytes. Each contig's MD5 is taken from its
+codes a block at a time.
 """
 
 import datetime
@@ -13,7 +19,7 @@ import os
 import numpy as np
 import pandas as pd
 
-from . import constants, seqcodec
+from . import constants, spans, textcodec
 from .io.bgzf import BgzfWriter
 
 INFO_HEADERS = [
@@ -173,28 +179,48 @@ def write_merged_vcf(asm_name, input_dict, output_filename, ref_store,
     if unknown_alt:
         raise ValueError(f'Unknown symbolic ALTs: {sorted(unknown_alt)}')
 
+    lines = ['##fileformat=VCFv4.2\n',
+             f'##fileDate={datetime.date.today().strftime("%Y%m%d")}\n',
+             f'##source=pav_tpu {constants.get_version_string()}\n']
+    for _, row in ref_info_df.iterrows():
+        md5 = f',md5={row["MD5"]}' if 'MD5' in row.index and pd.notnull(row.get('MD5')) else ''
+        lines.append(f'##contig=<ID={row["NAME"]},length={row["LEN"]}{md5}>\n')
+    for flt, reason in constants.FILTER_REASON.items():
+        lines.append(f'##FILTER=<ID={flt},Description="{reason}">\n')
+    headers = list(INFO_HEADERS)
+    if any_info_seq:
+        headers.append(('SEQ', '.', 'String', 'SV or indel sequence'))
+    for hid, num, typ, desc in headers:
+        lines.append(f'##INFO=<ID={hid},Number={num},Type={typ},Description="{desc}">\n')
+    for alt_id, desc in (('INS', 'Sequence insertion'), ('DEL', 'Sequence deletion'),
+                         ('INV', 'Inversion')):
+        if alt_id in symbolic_alt_set:
+            lines.append(f'##ALT=<ID={alt_id},Description="{desc}">\n')
+    lines.append('##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n')
+    lines.append('\t'.join(df.columns) + '\n')
+    header = ''.join(lines)
+
+    # Remove any stale index first so a failed write can't leave a .tbi
+    # inconsistent with the new VCF. The codec writes the records and the
+    # index (textcodec.write_vcf); where it cannot, the writer below does.
+    tbi_path = output_filename + '.tbi'
+    if os.path.exists(tbi_path):
+        os.unlink(tbi_path)
+    with spans.span('emit.table') as sp:
+        sp.counts['name'] = 'vcf'
+        on = 'native'
+        if not textcodec.write_vcf(header, df, output_filename, tbi_path):
+            on = 'python'
+            _write_vcf_python(header, df, output_filename, tbi_path)
+        sp.counts.update(rows=df.shape[0], bytes=os.path.getsize(output_filename), on=on)
+
+
+def _write_vcf_python(header, df, output_filename, tbi_path):
+    """``header`` and the records of ``df`` as BGZF, and their tabix index,
+    written in Python."""
     tbi_records = []
     with BgzfWriter(output_filename) as out:
-        out.write('##fileformat=VCFv4.2\n')
-        out.write(f'##fileDate={datetime.date.today().strftime("%Y%m%d")}\n')
-        out.write(f'##source=pav_tpu {constants.get_version_string()}\n')
-        for _, row in ref_info_df.iterrows():
-            md5 = f',md5={row["MD5"]}' if 'MD5' in row.index and pd.notnull(row.get('MD5')) else ''
-            out.write(f'##contig=<ID={row["NAME"]},length={row["LEN"]}{md5}>\n')
-        for flt, reason in constants.FILTER_REASON.items():
-            out.write(f'##FILTER=<ID={flt},Description="{reason}">\n')
-        headers = list(INFO_HEADERS)
-        if any_info_seq:
-            headers.append(('SEQ', '.', 'String', 'SV or indel sequence'))
-        for hid, num, typ, desc in headers:
-            out.write(f'##INFO=<ID={hid},Number={num},Type={typ},Description="{desc}">\n')
-        for alt_id, desc in (('INS', 'Sequence insertion'), ('DEL', 'Sequence deletion'),
-                             ('INV', 'Inversion')):
-            if alt_id in symbolic_alt_set:
-                out.write(f'##ALT=<ID={alt_id},Description="{desc}">\n')
-        out.write('##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n')
-        out.write('\t'.join(df.columns))
-        out.write('\n')
+        out.write(header)
         # Columnar line assembly (one vectorized concat), then a tight write
         # loop that only records per-record virtual offsets for the index.
         if df.shape[0]:
@@ -214,11 +240,7 @@ def write_merged_vcf(asm_name, input_dict, output_filename, ref_store,
                                     vs, out.tell_virtual()))
 
     # Tabix index (reference runs the external tabix binary:
-    # rules/vcf.snakefile:97). Remove any stale index first so a failed write
-    # can't leave a .tbi inconsistent with the new VCF.
-    tbi_path = output_filename + '.tbi'
-    if os.path.exists(tbi_path):
-        os.unlink(tbi_path)
+    # rules/vcf.snakefile:97).
     try:
         from .io.tabix import write_tabix
         write_tabix(tbi_records, tbi_path)
@@ -229,12 +251,9 @@ def write_merged_vcf(asm_name, input_dict, output_filename, ref_store,
 
 def ref_info_table(ref_store, with_md5=True):
     """Per-chromosome NAME/LEN/MD5 table (reference: rules/data.snakefile:21-32)."""
-    import hashlib
     rows = []
     for name in ref_store.names():
         codes = ref_store.get(name)
-        md5 = None
-        if with_md5:
-            md5 = hashlib.md5(seqcodec.decode(codes).encode()).hexdigest()
+        md5 = textcodec.md5_of_codes(codes) if with_md5 else None
         rows.append((name, len(codes), md5))
     return pd.DataFrame(rows, columns=['NAME', 'LEN', 'MD5'])

@@ -213,6 +213,45 @@ def test_merge_jobs_are_the_merge_pools_tasks(run):
     assert not [r for r in rows if r['NAME'] in ('merge.shard', 'merge.concat')]
 
 
+def test_fasta_reads_are_native_spans(run):
+    """The text codec reads the reference (under ``run:reference``) and
+    each haplotype's FASTA (under ``S1:load``), one ``io.fasta`` span a
+    file with its size and records, on the native path."""
+    rows = run['rows']
+    by_id = {r['ID']: r for r in rows}
+    reads = [r for r in rows if r['NAME'] == 'io.fasta']
+    assert sorted(by_id[r['PARENT']]['NAME'] for r in reads) == [
+        'S1:load', 'S1:load', 'run:reference']
+    size = {'run:reference': os.path.getsize(run['dir'] / 'ref.fa'),
+            'S1:load': sorted(os.path.getsize(run['dir'] / f) for f in ('h1.fa', 'h2.fa'))}
+    got = sorted(int(_counts(r)['bytes']) for r in reads if r['LABEL'] == 'S1')
+    assert got == size['S1:load']
+    for r in reads:
+        c = _counts(r)
+        assert c['on'] == 'native' and int(c['records']) >= 1
+        if r['LABEL'] == '':
+            assert int(c['bytes']) == size['run:reference']
+
+
+def test_every_artifact_is_a_native_emit_span(run):
+    """Each table the run writes and its VCF is one ``emit.table`` span
+    naming it, with its rows and its size on disk, on the native path."""
+    base = run['dir'] / 'run' / 'S1'
+    want = {'vcf': os.path.getsize(run['dir'] / 'run' / 'S1.vcf.gz')}
+    for root, _, names in os.walk(base):
+        for name in names:
+            if name.endswith('.tsv.gz'):
+                path = os.path.join(root, name)
+                want[os.path.relpath(path, base)[:-len('.tsv.gz')]] = os.path.getsize(path)
+    rows = [r for r in run['rows'] if r['NAME'] == 'emit.table']
+    got = {_counts(r)['name']: int(_counts(r)['bytes']) for r in rows}
+    assert len(rows) == len(got) == len(want) >= 30
+    assert got == want
+    assert all(_counts(r)['on'] == 'native' and int(_counts(r)['rows']) >= 0 for r in rows)
+    vcf = [r for r in rows if _counts(r)['name'] == 'vcf']
+    assert int(_counts(vcf[0])['rows']) >= 5
+
+
 def test_stage_spans_count_memory(run):
     """Every sample and haplotype stage span carries the process's peak
     and resident set; a span's peak never falls while it runs, and along
