@@ -104,12 +104,6 @@ Phases (each prints its lines; any failure exits nonzero):
      walker's launches are timed on the run's own tapes in the warm-up run
      (the measured run carries no such instrumentation), and the VCF must
      meet the recall floors against the planted truth;
- 12. bench: ``bench_torch.py`` (the port of bench.py) in a subprocess on the
-     card with BENCH_ENV (a 10 Mbp chromosome child, at most two headline
-     iterations): its last JSON line must carry backend cuda, 0 < mfu <= 1
-     and the repeat-rich and chromosome keys, and its repeat-rich child must
-     launch dp_wave; its lines are relayed, and its headline set beside
-     phase 4's CLI rate on the same genome;
  13. kilobase SVs (pav_tpu_torch.synth.wide_genome: bench.py's generator
      with 30% of its SVs of 2-10 kb), whose DP segments take dp_full's wide
      path: (a) a 400 kb genome through the CLI on cuda and on the cpu
@@ -136,7 +130,7 @@ Phases (each prints its lines; any failure exits nonzero):
      more than one contig a haplotype, merge over 2 chromosome batches on
      the sharded branch and trim the contigs' overlaps; (b) asm97 (full
      length, 97.5 Mbp) through the CLI in a child process, measured as
-     phase 11's run is (wall, stage seconds, ALIGN_STATS by haplotype,
+     phase 11's run is (wall, stage seconds, ALIGN_STATS_BY_HAP,
      launches, DP class table, gather flags, density paths, peak RSS,
      torch's peak allocation, nvidia-smi samples, contig count and NG50),
      the same paths and the floors held. Where a floor is missed only
@@ -196,17 +190,12 @@ CHAIN_ARGS = (64, 19, 50000.0, 10000.0, 0.19)   # lookback, k, limits, gap scale
 CHAIN_ARGS_I2F = (64, 19, 2.0 ** 31, 2.0 ** 31, 0.19)
 CHAIN_PROBE_STEPS = 1 << 20     # steps of the dependency-chain probe
 DENSITY_LONG = (4, 1 << 18)     # phase 3 density: regions x n_pad
-# Phase 11: bench.py's chromosome-scale sample (PAV_BENCH_CHROM_MBP's
-# default, seed SEED + 17).
+# Phase 11: bench.py's chromosome-scale sample at its default length,
+# seed SEED + 17.
 CHROM_REF_LEN = 100_000_000
 CHROM_SEED = 28
 # Phase 13's samples, widths and wide16's reference digest are
 # pav_tpu_torch.synth's WIDE_SMALL, WIDE16, WIDE_WIDTHS and WIDE16_REFERENCE.
-# Phase 12: bench_torch.py at its defaults but these, within its own budget
-# and a timeout (phase 11 already runs the 100 Mbp sample).
-BENCH_ENV = {'PAV_BENCH_CHROM_MBP': '10', 'PAV_BENCH_MAX_ITERS': '2',
-             'PAV_BENCH_TOTAL_S': '420'}
-BENCH_TIMEOUT = 480
 ASM_TIMEOUT = 600               # phase 14b: the asm97 CLI child's limit
 # What nvidia-smi samples beside a measured run, every SMI_PERIOD_MS.
 SMI_QUERY = 'memory.used,power.draw,clocks.sm,clocks.mem,utilization.gpu'
@@ -1087,8 +1076,7 @@ def cli_child(stats_path, argv):
     stats = {'rc': rc, 'wall': wall, 'torch_memory': None,
              'launches': launches_read(),
              'classes': [[list(k), list(v)] for k, v in affine_dp.STATS['classes'].items()],
-             'density': density, 'align_stats': dict(core.ALIGN_STATS),
-             'align_stats_by_hap': core.ALIGN_STATS_BY_HAP,
+             'density': density, 'align_stats_by_hap': core.ALIGN_STATS_BY_HAP,
              'gather_flags': affine_dp.STATS['gather_flags'],
              'walk_ms': [], 'walk_device_ms': []}
     if torch.cuda.is_initialized():
@@ -1106,12 +1094,19 @@ def cli_child(stats_path, argv):
     return rc
 
 
-def log_align_by_hap(st):
-    """Log a CLI child's ALIGN_STATS_BY_HAP (cli_child's stats)."""
+def log_align_stats(by_hap):
+    """Log the aligner's host seconds (core.ALIGN_STATS_BY_HAP, or a CLI
+    child's copy), summed over the haplotypes and by haplotype."""
+    total = {}
+    for secs in by_hap.values():
+        for k, v in secs.items():
+            total[k] = total.get(k, 0.0) + v
+    log('aligner host seconds (ALIGN_STATS_BY_HAP summed): ' + json.dumps(
+        {k: round(v, 3) for k, v in sorted(total.items())}))
     log('aligner host seconds by haplotype (ALIGN_STATS_BY_HAP; the planning of a '
         'haplotype\'s contigs on the pool\'s threads summed): ' + json.dumps(
             {hap: {k: round(v, 3) for k, v in sorted(secs.items())}
-             for hap, secs in sorted(st['align_stats_by_hap'].items())}))
+             for hap, secs in sorted(by_hap.items())}))
 
 
 def run_cli_child(d, argv, label, timeout, time_walks=False):
@@ -1483,7 +1478,7 @@ def main():
     torch.cuda.synchronize()
 
     with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
-        main_launches, genome, bench16_rate = drive_main_path(work, card, dev)
+        main_launches, genome = drive_main_path(work, card, dev)
         for key, count in drive_scale_out(work, card, dev, genome).items():
             main_launches[key] += count
         del genome
@@ -1492,10 +1487,8 @@ def main():
         stamp('phase 11')
         for key, count in phase_chrom(work, card, dev).items():
             main_launches[key] += count
-    stamp('phase 12')
-    torch.cuda.empty_cache()
-    phase_bench(card, bench16_rate)
     stamp('phase 13')
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix='pav_chip_smoke_') as work:
         for key, count in phase_wide(work, card, dev).items():
             main_launches[key] += count
@@ -1669,11 +1662,11 @@ def traced_run(work, name, ref, haps, want, wall_note):
 def measured_run(work, name, ref, haps, card):
     """One CLI run of a sample on DEVICE without a profiler (phases 4 and
     13b): its wall and contig Mbp/s, launches (read from 0 just before the
-    run to just after it), stage seconds, ALIGN_STATS, torch's peak device
-    memory and nvidia-smi samples beside it; the full-width, traceback and
-    seeding kernels must run (require_main_path), and the text codec read
-    and wrote every file natively (require_native_text). Returns (run dir,
-    VCF records, launches, DP class table, contig Mbp/s)."""
+    run to just after it), stage seconds, ALIGN_STATS_BY_HAP, torch's peak
+    device memory and nvidia-smi samples beside it; the full-width,
+    traceback and seeding kernels must run (require_main_path), and the text
+    codec read and wrote every file natively (require_native_text). Returns
+    (run dir, VCF records, launches, DP class table)."""
     import torch
     from pav_tpu_torch.align.aligner import core
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
@@ -1694,8 +1687,7 @@ def measured_run(work, name, ref, haps, card):
         f'(no profiler), {rate:.3f} contig Mbp/s on {card}; launches {launches}; resident '
         f'gather windows by flag 0-3 {affine_dp.STATS["gather_flags"]}')
     log('stage seconds: ' + json.dumps(stage_seconds(run_dir, name)))
-    log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
-        {k: round(v, 3) for k, v in core.ALIGN_STATS.items()}))
+    log_align_stats(core.ALIGN_STATS_BY_HAP)
     log(f'{name} device memory: torch max_memory_allocated '
         f'{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, max_memory_reserved '
         f'{torch.cuda.max_memory_reserved() / 2**20:.0f} MiB; {smi_note(smi, before)}; on {card}')
@@ -1703,13 +1695,13 @@ def measured_run(work, name, ref, haps, card):
         fail(f'the {name} VCF has no records')
     require_main_path(name, launches)
     require_native_text(run_dir, name)
-    return run_dir, recs, launches, classes, rate
+    return run_dir, recs, launches, classes
 
 
 def drive_main_path(work, card, dev):
     """Phases 4-6; returns the kernel launches of phases 4 and 5 (each read
-    from 0 just before its run to just after it), phase 4's genome (ref,
-    h1, h2) and its contig Mbp/s (the CLI's wall)."""
+    from 0 just before its run to just after it) and phase 4's genome (ref,
+    h1, h2)."""
     from pav_tpu_torch import synth
     from pav_tpu_torch.ops import affine_dp, chain_scan, dp_kernels
 
@@ -1721,7 +1713,7 @@ def drive_main_path(work, card, dev):
     log(f'genome: {len(ref) / 1e6:g} Mbp reference, haps {len(h1)} + {len(h2)} bp '
         f'({time.time() - t0:.1f} s)')
     haps = {'h1': ('tig_h1', h1), 'h2': ('tig_h2', h2)}
-    run_dir, recs, main_launches, classes, rate = measured_run(work, 'bench16', ref, haps, card)
+    run_dir, recs, main_launches, classes = measured_run(work, 'bench16', ref, haps, card)
     synth.hold_to_truth('bench16 VCF', os.path.join(run_dir, 'bench16.vcf.gz'), t1 + t2)
 
     # The same sample again under a CUDA-activity trace: device time by kernel.
@@ -1770,7 +1762,7 @@ def drive_main_path(work, card, dev):
              f'{len(cpu_recs)} records)')
     log(f'parity: cuda and cpu (ladder=accel) VCFs of the e2e genome identical '
         f'({len(gpu_recs)} records)')
-    return main_launches, genome, rate
+    return main_launches, genome
 
 
 def drive_scale_out(work, card, dev, genome):
@@ -1975,9 +1967,7 @@ def phase_chrom(work, card, dev):
         f'windows by flag 0-3 {st["gather_flags"]}')
     require_main_path(name, launches)
     log('stage seconds: ' + json.dumps(stage_seconds(os.path.join(d, 'run'), name)))
-    log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
-        {k: round(v, 3) for k, v in st['align_stats'].items()}))
-    log_align_by_hap(st)
+    log_align_stats(st['align_stats_by_hap'])
     log(f'{name} density paths (calls, largest grid): {st["density"]}')
     wide = sorted(k for k in st['classes'] if k[2] == k[1] + 1 and k[2] > 4097)
     log(f'{name} dp_wave launches: {launches["wave"]}; dp_full classes wider than 4097: '
@@ -2148,7 +2138,7 @@ def phase_wide(work, card, dev):
         f'{len(h2)} bp, {len(svs)} SVs, {sum(x >= synth.WIDE_MIN for x in svs)} of 2-10 kb, '
         f'{sum(x > 8192 for x in svs)} above 8192 bp ({time.time() - t0:.1f} s)')
     haps = {'h1': ('wtig_h1', h1), 'h2': ('wtig_h2', h2)}
-    run_dir, recs, wide_launches, classes, _ = measured_run(work, 'wide16', ref, haps, card)
+    run_dir, recs, wide_launches, classes = measured_run(work, 'wide16', ref, haps, card)
     launched_widths('wide16', classes)
     vcf = os.path.join(run_dir, 'wide16.vcf.gz')
     count, digest = synth.records_digest(vcf)
@@ -2318,9 +2308,9 @@ def phase_asm97(work, card, dev):
     """14b. asm97 (synth.ASM97: GRCh38's chr21 and chr22 at full length)
     from FASTA through the CLI on the card in a child process
     (run_cli_child, no instrumentation), measured as phase 11's run is:
-    wall, stage seconds, ALIGN_STATS in all and by haplotype, launches, the
-    DP class table with each class timed alone, gather flags, density
-    paths, the child's peak RSS, torch's peak allocation, nvidia-smi
+    wall, stage seconds, ALIGN_STATS_BY_HAP summed and by haplotype,
+    launches, the DP class table with each class timed alone, gather flags,
+    density paths, the child's peak RSS, torch's peak allocation, nvidia-smi
     samples; the sample's contig count and NG50. The full-width, traceback
     and seeding kernels must launch, the run must take asm_paths' paths and
     its VCF meet the floors. Returns its launches."""
@@ -2361,9 +2351,7 @@ def phase_asm97(work, card, dev):
         fail('the asm97 VCF has no records')
     require_main_path('asm97', launches)
     log('stage seconds: ' + json.dumps(stage_seconds(run_dir, 'asm97')))
-    log('aligner host seconds (ALIGN_STATS): ' + json.dumps(
-        {k: round(v, 3) for k, v in st['align_stats'].items()}))
-    log_align_by_hap(st)
+    log_align_stats(st['align_stats_by_hap'])
     log(f'asm97 density paths (calls, largest grid): {st["density"]}')
     wide = sorted(k for k in st['classes'] if k[2] == k[1] + 1 and k[2] > 4097)
     log(f'asm97 dp_wave launches: {launches["wave"]}; dp_full classes wider than 4097: '
@@ -2379,56 +2367,6 @@ def phase_asm97(work, card, dev):
     dp_classes('asm97', st['classes'], dev, events=True)
     synth.hold_to_truth('asm97 VCF', vcf, t1 + t2)
     return launches
-
-
-def phase_bench(card, bench16_rate):
-    """12. ``bench_torch.py --device DEVICE`` with BENCH_ENV in a subprocess
-    (its own process group, killed whole at BENCH_TIMEOUT); its lines are
-    relayed. Its last JSON line must carry backend DEVICE, 0 < mfu <= 1 and
-    the three secondary keys, and its repeat-rich child must launch
-    dp_wave."""
-    t0 = time.time()
-    proc = subprocess.Popen([sys.executable, os.path.join(ROOT, 'bench_torch.py'),
-                             '--device', DEVICE], cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True,
-                            env=dict(os.environ, PYTHONPATH=ROOT, **BENCH_ENV))
-    try:
-        out, err = proc.communicate(timeout=BENCH_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, 9)
-        out, err = proc.communicate()
-    finally:
-        with contextlib.suppress(ProcessLookupError):
-            os.killpg(proc.pid, 9)
-    wall = time.time() - t0
-    for line in err.splitlines():
-        log(f'  bench_torch stderr: {line}')
-    for line in out.splitlines():
-        log(f'  bench_torch stdout: {line}')
-    if proc.returncode != 0:
-        fail(f'bench_torch.py exited {proc.returncode} after {wall:.0f} s')
-    lines = [json.loads(line) for line in out.splitlines() if line.startswith('{')]
-    if not lines:
-        fail('bench_torch.py printed no JSON line')
-    last = lines[-1]
-    missing = [k for k in ('metric', 'value', 'unit', 'vs_baseline', 'mfu', 'peak_rss_gb',
-                           'backend', 'repeat_rich_mbp_s', 'chrom_scale_mbp_s',
-                           'chrom_peak_rss_gb') if k not in last]
-    if missing or last['backend'] != DEVICE:
-        fail(f'bench_torch.py: last JSON line lacks {missing} or has backend '
-             f'{last.get("backend")}: {last}')
-    if not (isinstance(last['mfu'], float) and 0 < last['mfu'] <= 1):
-        fail(f'bench_torch.py: mfu {last["mfu"]} is not in (0, 1]')
-    rep = [line.split('repeat launches ', 1)[1] for line in err.splitlines()
-           if 'repeat launches ' in line]
-    if not rep or json.loads(rep[-1])['wave'] <= 0:
-        fail(f'bench_torch.py: the repeat-rich child launched no dp_wave: {rep}')
-    log(f'bench_torch.py ({json.dumps(BENCH_ENV)}): exit 0 in {wall:.1f} s; headline '
-        f'{last["value"]} contig Mbp/s (best in-process Pipeline.run_sample) against phase '
-        f'4\'s {bench16_rate:.4f} (one CLI run in this process, the same genome): ratio '
-        f'{last["value"] / bench16_rate:.3f}; mfu {last["mfu"]}; repeat-rich '
-        f'{last["repeat_rich_mbp_s"]} Mbp/s, dp_wave launches {json.loads(rep[-1])["wave"]}; '
-        f'chrom {last["chrom_scale_mbp_s"]} Mbp/s; on {card}')
 
 
 def _free_port():

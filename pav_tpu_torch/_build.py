@@ -1,11 +1,22 @@
-"""Build and load the CUDA kernels of ``csrc/`` (nvcc + ctypes).
+"""Build and load the port's shared libraries (ctypes), and the CUDA
+kernels of ``csrc/`` (nvcc).
 
-All ``csrc/*.cu`` files compile with nvcc into one shared library with a plain
-C interface, at first use, into ``build/torch_kernels/`` beside the package:
-one nvcc per source, all started together, then one link. The file name
-carries a hash of the sources and flags, so an edited source builds anew and
-an unchanged one loads the cached library. Every C entry
-takes its pointers and the CUDA stream as ``void*``, launches on that
+One routine builds and loads every library the port compiles: the CUDA
+kernels here, the text codec of ``hostsrc/`` (``textcodec``) and the host
+runtime of ``native/`` (``native``, through ``build`` alone); each caller
+supplies its own compile step. ``library`` names the file by a hash of the
+sources and flags, so an edited source or flag builds anew and an unchanged
+one loads the cached file with no compiler looked up, and declares a
+``SIGNATURES`` table on it; ``build`` compiles to a temporary file named by
+process and thread and renames it into place, so two processes or threads
+building at once never load a half-written library. A library is written
+only under the checkout's ``build/``: where that cannot be written, the
+build fails and the caller raises or runs its Python path.
+
+All ``csrc/*.cu`` files compile with nvcc into one shared library with a
+plain C interface, at first use, into ``build/torch_kernels/`` beside the
+package: one nvcc per source, all started together, then one link. Every C
+entry takes its pointers and the CUDA stream as ``void*``, launches on that
 stream, and returns ``cudaGetLastError()``; ``check`` turns a nonzero code
 into an exception. Nothing here runs for CPU tensors: the CPU path never
 calls nvcc.
@@ -96,44 +107,69 @@ def _nvcc():
     return found
 
 
-def _source_hash():
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for path in _sources():
-        h.update(os.path.basename(path).encode())
-        with open(path, 'rb') as fh:
+def build(path, compile_step):
+    """Build the library at ``path``: ``compile_step(out)`` writes it to
+    ``out``, a temporary file beside ``path`` named by process and thread,
+    which is renamed onto ``path`` when the step returns and removed when it
+    raises. Returns what the step returns."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f'{path}.{os.getpid()}.{threading.get_ident()}.tmp'
+    try:
+        result = compile_step(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return result
+
+
+def library(build_dir, name, sources, flags, compile_step, signatures):
+    """(handle, path, log) of the library ``name`` of ``sources`` built with
+    ``flags`` under ``build_dir``, its file named by a hash of both: loaded
+    from that file where it exists (``log`` None), else built through
+    ``compile_step`` (``log`` what it returned) and loaded. Each entry of
+    ``signatures`` (name -> (argtypes, restype)) is declared on the handle;
+    a name the library lacks raises here."""
+    h = hashlib.sha256(' '.join(flags).encode())
+    for src in sources:
+        h.update(os.path.basename(src).encode())
+        with open(src, 'rb') as fh:
             h.update(fh.read())
-    return h.hexdigest()[:16]
+    path = os.path.join(build_dir, f'{name}-{h.hexdigest()[:16]}.so')
+    log = None if os.path.exists(path) else build(path, compile_step)
+    handle = ctypes.CDLL(path)
+    for fn_name, (argtypes, restype) in signatures.items():
+        fn = getattr(handle, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return handle, path, log
 
 
-def _compile(nvcc, so_path):
+def _compile(out):
     """Compile every ``.cu`` to an object with its own nvcc process (all at
-    once), link them into ``so_path``; returns the compilers' output."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    stem = f'{so_path}.{os.getpid()}'
+    once), link them into ``out``; returns the compilers' output."""
+    nvcc = _nvcc()
     compile_flags = [f for f in NVCC_FLAGS if f != '-shared']
     jobs = []
     for src in (p for p in _sources() if p.endswith('.cu')):
-        obj = f'{stem}.{os.path.basename(src)}.o'
+        obj = f'{out}.{os.path.basename(src)}.o'
         jobs.append((obj, subprocess.Popen(
             [nvcc, *compile_flags, '-c', '-o', obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = ''
     failed = []
     for obj, proc in jobs:
-        out = proc.communicate()[0]
-        log += out
+        log += proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(obj)
     try:
         if failed:
             raise RuntimeError(f'nvcc failed on {failed}:\n{log}')
-        link = subprocess.run([nvcc, '-shared', '-o', f'{stem}.tmp',
-                               *(obj for obj, _ in jobs)],
+        link = subprocess.run([nvcc, '-shared', '-o', out, *(obj for obj, _ in jobs)],
                               capture_output=True, text=True)
         log += link.stdout + link.stderr
         if link.returncode != 0:
             raise RuntimeError(f'nvcc link failed ({link.returncode}):\n{log}')
-        os.replace(f'{stem}.tmp', so_path)
     finally:
         for obj, _ in jobs:
             if os.path.exists(obj):
@@ -145,22 +181,13 @@ def lib():
     """The loaded kernel library, building it on the first call."""
     global _LIB
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        so_path = os.path.join(BUILD_DIR, f'libpav_torch_kernels-{_source_hash()}.so')
-        t0 = time.time()
-        cached = os.path.exists(so_path)
-        log = ''
-        if not cached:
-            log = _compile(_nvcc(), so_path)
-        handle = ctypes.CDLL(so_path)
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        BUILD_INFO.update(path=so_path, seconds=time.time() - t0,
-                          cached=cached, log=log)
-        _LIB = handle
+        if _LIB is None:
+            t0 = time.time()
+            handle, path, log = library(BUILD_DIR, 'libpav_torch_kernels', _sources(),
+                                        NVCC_FLAGS, _compile, SIGNATURES)
+            BUILD_INFO.update(path=path, seconds=time.time() - t0,
+                              cached=log is None, log=log or '')
+            _LIB = handle
         return _LIB
 
 

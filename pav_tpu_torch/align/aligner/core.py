@@ -44,23 +44,20 @@ from .index import build_index
 
 _MIN_WIDTH = 65
 
-# The planning pool's wall, summed over runs (reset via align_stats_reset),
-# in all and by the ``hap`` of align_store: the ``align.plan`` span's
-# duration. Every other phase of align_store is a span (``spans``).
-ALIGN_STATS = {'plan_s': 0.0}
+# The planning pool's wall, summed over runs (reset via align_stats_reset)
+# by the ``hap`` of align_store: the ``align.plan`` span's duration. Every
+# other phase of align_store is a span (``spans``).
 ALIGN_STATS_BY_HAP = {}
 _STATS_LOCK = threading.Lock()
 
 
 def align_stats_reset():
     with _STATS_LOCK:
-        ALIGN_STATS['plan_s'] = 0.0
         ALIGN_STATS_BY_HAP.clear()
 
 
 def _account_plan(hap, secs):
     with _STATS_LOCK:
-        ALIGN_STATS['plan_s'] += secs
         mine = ALIGN_STATS_BY_HAP.setdefault(hap, {})
         mine['plan_s'] = mine.get('plan_s', 0.0) + secs
 

@@ -2,10 +2,11 @@
 
 The shared library is built on first use with the system toolchain from the
 repo's native/*.cpp and cached under build/torch_native/, apart from the JAX
-package's build, written to a temporary file and renamed into place, so that
-two processes building at once never load a half-written library. Without a
-toolchain, chaining falls back to the CUDA chain scan on the aligner's device
-(ops/chain_scan.py).
+package's build, through the port's one build routine (``_build.build``: a
+temporary file renamed into place, so that two processes building at once
+never load a half-written library). Where the toolchain is missing or the
+build directory cannot be written, chaining falls back to the CUDA chain
+scan on the aligner's device (ops/chain_scan.py).
 """
 
 import ctypes
@@ -50,29 +51,10 @@ _SO_PATH = os.path.join(_BUILD_DIR, f'libpavnative-{_host_tag()}.so')
 
 
 def _build():
-    global _SO_PATH
-    try:
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        probe = os.path.join(_BUILD_DIR, '.write_probe')
-        with open(probe, 'w'):
-            pass
-        os.unlink(probe)
-    except OSError:
-        # Installed into a read-only prefix (pip install): build into a
-        # per-user cache instead.
-        cache = os.path.join(os.path.expanduser('~'), '.cache', 'pav_tpu_torch')
-        os.makedirs(cache, exist_ok=True)
-        _SO_PATH = os.path.join(cache, os.path.basename(_SO_PATH))
-        if os.path.exists(_SO_PATH):
-            return
-    tmp = f'{_SO_PATH}.{os.getpid()}.{threading.get_ident()}.tmp'
-    cmd = ['g++', '-O3', '-march=native', '-shared', '-fPIC', *_SRCS, '-o', tmp]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, _SO_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    from ._build import build
+    build(_SO_PATH, lambda out: subprocess.run(
+        ['g++', '-O3', '-march=native', '-shared', '-fPIC', *_SRCS, '-o', out],
+        check=True, capture_output=True))
 
 
 def get_lib():

@@ -52,8 +52,7 @@ from . import dp_kernels
 # gather_flags: the windows of resident launches (a real item's q and r
 #   window each) by gather flags 0-3 (_gather_resident: 1 reversed,
 #   2 complemented, 3 both)
-STATS = {'launches': 0, 'items': 0, 'h2d_bytes': 0, 'd2h_bytes': 0,
-         'resolve_s': 0.0, 'dispatch_s': 0.0,
+STATS = {'launches': 0, 'items': 0, 'resolve_s': 0.0,
          'sharded_puts': 0, 'mesh_devices': 0, 'shard_rows': (),
          'shard_cells': (), 'classes': {}, 'gather_flags': (0, 0, 0, 0)}
 _STATS_LOCK = threading.Lock()
@@ -284,7 +283,7 @@ class BandedAligner:
 
         fused = []
         host = [torch.from_numpy(a) for a in (qpad, rpad, m_p, n_p)]
-        with spans.span('dp.launch', items=B, cells=B_pad * max_m * width) as launch:
+        with spans.span('dp.launch', items=B, cells=B_pad * max_m * width):
             for dev, (q, r, mt, nt) in self._place(host, B_pad, max_m, width):
                 with on_device(dev):
                     fused.append(align_and_trace(q, r, mt, nt, max_m, width,
@@ -292,8 +291,6 @@ class BandedAligner:
         with _STATS_LOCK:
             STATS['launches'] += 1
             STATS['items'] += B
-            STATS['h2d_bytes'] += B_pad * (max_m + max_n + 8)
-            STATS['dispatch_s'] += launch.seconds
         cells_real = int(np.sum(m.astype(np.int64) * np.minimum(n + 1, width)))
         return self._finish(fused, B, B_pad, max_m, max_n, width,
                             cells_real=cells_real)
@@ -321,7 +318,7 @@ class BandedAligner:
         arr[B:, 4] = 1
 
         fused = []
-        with spans.span('dp.launch', items=B, cells=B_pad * max_m * width) as launch:
+        with spans.span('dp.launch', items=B, cells=B_pad * max_m * width):
             for dev, (desc,) in self._place([torch.from_numpy(arr)], B_pad,
                                             max_m, width):
                 with on_device(dev):
@@ -332,8 +329,6 @@ class BandedAligner:
         with _STATS_LOCK:
             STATS['launches'] += 1
             STATS['items'] += B
-            STATS['h2d_bytes'] += arr.nbytes
-            STATS['dispatch_s'] += launch.seconds
             STATS['gather_flags'] = tuple(
                 int(a + b) for a, b in zip(STATS['gather_flags'], flags))
         cells_real = int(np.sum(
@@ -374,7 +369,6 @@ class BandedAligner:
                   << np.arange(4, dtype=np.int32) * 8).sum(axis=1)
             with _STATS_LOCK:
                 STATS['resolve_s'] += dt
-                STATS['d2h_bytes'] += buf.nbytes
                 cls = STATS['classes'].setdefault(
                     (max_m, max_n, width, B_pad), [0, 0.0, 0, 0, 0, 0, 0])
                 cls[0] += 1

@@ -4,8 +4,7 @@ The generators of ``tests/helpers.py`` and ``bench.py`` (random background,
 planted mutations with truth records, repeat-rich references, the diploid
 bench sample) on the port's own codec, and the concordance of a VCF with
 the planted truth at ``tests/test_recall.py``'s floors. Not a pipeline
-feature: ``chip_smoke.py``, ``bench_torch.py`` and the port's tests import
-it.
+feature: ``chip_smoke.py`` and the port's tests import it.
 """
 
 import numpy as np

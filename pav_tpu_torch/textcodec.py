@@ -4,14 +4,13 @@ interpreter lock.
 ``hostsrc/textcodec.cpp`` does the text: it parses FASTA into base codes,
 formats a table's typed columns as ``DataFrame.to_csv(sep='\\t',
 index=False)`` writes them, and formats VCF records with their tabix index.
-It is built with ``g++`` on first use into ``build/torch_text/`` (the file
-named by a hash of the source and flags, written to a temporary file and
-renamed into place) and called through ``ctypes``, which releases the lock
-for every call. Python moves the blocks: it reads a file a block at a time
-and feeds it in, and deflates what comes out with ``zlib`` (which releases
-the lock too): a gzip stream for a table (level 2), ``io.bgzf``'s blocks
-for the VCF and its index. So a thread writing tables holds the lock only
-to hand the codec its columns.
+It is built with ``g++`` on first use into ``build/torch_text/`` (through
+``_build.library``, as the port's other libraries) and called through
+``ctypes``, which releases the lock for every call. Python moves the
+blocks: it reads a file a block at a time and feeds it in, and deflates
+what comes out with ``zlib`` (which releases the lock too): a gzip stream
+for a table (level 2), ``io.bgzf``'s blocks for the VCF and its index. So
+a thread writing tables holds the lock only to hand the codec its columns.
 
 Where ``g++`` is missing or the build fails, where a file holds bytes
 outside ASCII, where a reader would raise, or where a column has a type the
@@ -36,7 +35,7 @@ import zlib
 import numpy as np
 import pandas as pd
 
-from . import seqcodec, spans
+from . import _build, seqcodec, spans
 from .io import fasta
 from .io.bgzf import _BLOCK_MAX, BGZF_EOF, _compress_block
 
@@ -74,22 +73,8 @@ _LOCK = threading.Lock()
 _STATE = {}  # 'lib': the loaded library or None, once tried
 
 
-def _so_path():
-    h = hashlib.sha256(' '.join(FLAGS).encode())
-    with open(_SRC, 'rb') as fh:
-        h.update(fh.read())
-    return os.path.join(BUILD_DIR, f'libpavtext-{h.hexdigest()[:16]}.so')
-
-
-def _build(so_path):
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{so_path}.{os.getpid()}.{threading.get_ident()}.tmp'
-    try:
-        subprocess.run(['g++', *FLAGS, _SRC, '-o', tmp], check=True, capture_output=True)
-        os.replace(tmp, so_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+def _compile(out):
+    subprocess.run(['g++', *FLAGS, _SRC, '-o', out], check=True, capture_output=True)
 
 
 def lib():
@@ -97,19 +82,11 @@ def lib():
     built (the Python path then runs)."""
     with _LOCK:
         if 'lib' not in _STATE:
-            handle = None
             try:
-                so_path = _so_path()
-                if not os.path.exists(so_path):
-                    _build(so_path)
-                handle = ctypes.CDLL(so_path)
-                for name, (argtypes, restype) in SIGNATURES.items():
-                    fn = getattr(handle, name)
-                    fn.argtypes = argtypes
-                    fn.restype = restype
+                _STATE['lib'] = _build.library(BUILD_DIR, 'libpavtext', [_SRC], FLAGS,
+                                               _compile, SIGNATURES)[0]
             except (OSError, subprocess.CalledProcessError):
-                handle = None
-            _STATE['lib'] = handle
+                _STATE['lib'] = None
         return _STATE['lib']
 
 

@@ -7,9 +7,9 @@ so a partial or edited copy fails here. ``vcf.py`` is the port's own (it
 writes through the port's text codec, ``textcodec``). Three copies differ
 on purpose:
 
-* ``native.py`` builds into its own ``build/torch_native/`` through a
-  temporary file (its module docstring, ``_BUILD_DIR`` and ``_build``);
-  every other line is the source's.
+* ``native.py`` builds into its own ``build/torch_native/`` through the
+  port's one build routine, ``_build.build`` (its module docstring,
+  ``_BUILD_DIR`` and ``_build``); every other line is the source's.
 * ``runtime.py`` keeps only ``retain_heap`` and the ``mark_progress``
   heartbeat it calls, each equal to the source's definition.
 * ``constants.py``'s docstring cites the upstream PAV file by its path in
@@ -101,7 +101,8 @@ def test_native_differs_only_in_its_build():
     assert set(want_spans) == set(got_spans)
     assert _without(got, got_spans, own) == _without(want, want_spans, own)
     build = '\n'.join(got[slice(got_spans['_build'][0] - 1, got_spans['_build'][1])])
-    assert 'os.replace(' in build
+    assert 'from ._build import build' in build and 'build(_SO_PATH,' in build
+    assert 'os.replace(' not in build and '.tmp' not in build
     assert "'torch_native'" in '\n'.join(got)
     assert 'JAX implementations' not in '\n'.join(got)
 

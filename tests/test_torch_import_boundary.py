@@ -117,11 +117,10 @@ def test_entry_points_and_eval_run_without_jax(tmp_path):
 
 
 def test_no_source_file_imports_jax():
-    """No module of the port, not chip_smoke.py and not bench_torch.py
-    imports jax or pav_tpu (bench_torch.py's run with both blocked is
-    test_torch_bench.py's)."""
+    """No module of the port and not chip_smoke.py imports jax or
+    pav_tpu."""
     offenders = []
-    paths = [os.path.join(REPO, 'chip_smoke.py'), os.path.join(REPO, 'bench_torch.py')]
+    paths = [os.path.join(REPO, 'chip_smoke.py')]
     for root, _, files in os.walk(PKG_DIR):
         paths += [os.path.join(root, name) for name in files if name.endswith('.py')]
     for path in paths:
@@ -166,6 +165,24 @@ def test_pipeline_defaults_to_cuda():
     with pytest.raises(RuntimeError, match='cuda'):
         Pipeline(store, {'device': 'cuda'})
     assert Pipeline(store, {'device': 'cpu'}).device.type == 'cpu'
+
+
+def test_cli_cuda_without_cuda_writes_no_vcf(tmp_path):
+    """``python -m pav_tpu_torch --device cuda`` on a host without CUDA
+    exits nonzero, says why, and writes no VCF under its run dir."""
+    if torch.cuda.is_available():
+        pytest.skip('CUDA present: --device cuda runs')
+    (tmp_path / 'ref.fa').write_text('>chr1\n' + 'ACGT' * 50 + '\n')
+    (tmp_path / 'h1.fa').write_text('>tig1\n' + 'ACGT' * 50 + '\n')
+    (tmp_path / 'asm.tsv').write_text('NAME\tHAP_h1\nS1\th1.fa\n')
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pav_tpu_torch', '--ref', 'ref.fa', '--assemblies',
+         'asm.tsv', '--run-dir', 'run', '--device', 'cuda'],
+        cwd=tmp_path, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode != 0
+    assert 'torch.cuda.is_available() is false' in proc.stderr
+    assert not list(tmp_path.glob('run/**/*.vcf*'))
 
 
 def _card_calls():

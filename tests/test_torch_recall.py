@@ -13,9 +13,8 @@ inversion). Held here:
   which reads the VCF as tests/test_recall.py reads the merged tables;
 * the port's merged tables equal ``pav_tpu``'s, CPU ladder against the
   unforced reference;
-* the port's generator and truth table (``pav_tpu_torch.synth``, which
-  chip_smoke.py and bench_torch.py run) equal bench.py's and
-  tests/test_recall.py's.
+* the port's generators and truth table (``pav_tpu_torch.synth``, which
+  chip_smoke.py runs) equal bench.py's and tests/test_recall.py's.
 """
 
 import gzip
@@ -137,6 +136,37 @@ def test_chip_smoke_generator_equals_bench():
         assert np.array_equal(a, b)
     assert got[3] == want[3] and got[4] == want[4]
     assert any(t['type'] == 'INV' for t in got[4])
+
+
+class _Captured(Exception):
+    pass
+
+
+def test_chip_smoke_repeat_genome_equals_bench(monkeypatch):
+    """bench.py's repeat_child, stopped at its first run_sample, builds the
+    same reference and haplotype from tests/helpers.py as synth.repeat_genome
+    at the same length and seed (bench.py's SEED + 7, chip_smoke.py's phase
+    5 seed)."""
+    import pav_tpu.pipeline
+    import pav_tpu.runtime
+    seen = {}
+
+    class Pipeline:
+        def __init__(self, ref_store, config, log=None):
+            seen['ref'] = ref_store.get('chr1')
+
+        def run_sample(self, name, haps, write_vcf=True):
+            seen['hap'] = haps['h1'].get('rtig1')
+            raise _Captured()
+    monkeypatch.setattr(pav_tpu.pipeline, 'Pipeline', Pipeline)
+    monkeypatch.setattr(pav_tpu.runtime, 'enable_compile_cache', lambda: None)
+    monkeypatch.setattr(pav_tpu.runtime, 'retain_heap', lambda *a: None)
+    monkeypatch.setattr(bench, 'REF_MBP', 0.3)
+    with pytest.raises(_Captured):
+        bench.repeat_child()
+    rref, rhap = synth.repeat_genome(150_000, bench.SEED + 7)
+    assert len(rhap) > 100_000
+    assert np.array_equal(rref, seen['ref']) and np.array_equal(rhap, seen['hap'])
 
 
 def test_chip_smoke_truth_table_equals_test_recall(genome):
