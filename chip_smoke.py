@@ -299,6 +299,25 @@ def require_native_text(run_dir, name, fastas=3):
         f'({files} files), all on=native')
 
 
+def require_native_aligner(run_dir, name):
+    """Fail unless the aligner's host path planned every contig of sample
+    ``name`` and assembled each haplotype's records natively: its
+    ``align.plan_contig`` and ``align.emit`` spans all read ``on=native``
+    (``hostplan.BUILD_INFO`` says why where they do not)."""
+    import csv
+    from pav_tpu_torch.align.aligner import hostplan
+    with open(os.path.join(run_dir, name, 'spans.tsv'), newline='') as fh:
+        rows = [r for r in csv.DictReader(fh, delimiter='\t')
+                if r['NAME'] in ('align.plan_contig', 'align.emit')]
+    emits = sum(r['NAME'] == 'align.emit' for r in rows)
+    off = [r['COUNTS'] for r in rows if 'on=native' not in r['COUNTS'].split(',')]
+    if not emits or emits == len(rows) or off:
+        fail(f'{name}: {len(rows) - emits} align.plan_contig and {emits} align.emit spans, '
+             f'not native: {off[:3]}; planner build: {hostplan.BUILD_INFO}')
+    log(f'{name}: {len(rows) - emits} align.plan_contig and {emits} align.emit spans, '
+        f'all on=native')
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -1665,7 +1684,8 @@ def measured_run(work, name, ref, haps, card):
     run to just after it), stage seconds, ALIGN_STATS_BY_HAP, torch's peak
     device memory and nvidia-smi samples beside it; the full-width,
     traceback and seeding kernels must run (require_main_path), and the text
-    codec read and wrote every file natively (require_native_text). Returns
+    codec read and wrote every file natively (require_native_text), and the
+    aligner planned and emitted natively (require_native_aligner). Returns
     (run dir, VCF records, launches, DP class table)."""
     import torch
     from pav_tpu_torch.align.aligner import core
@@ -1695,6 +1715,7 @@ def measured_run(work, name, ref, haps, card):
         fail(f'the {name} VCF has no records')
     require_main_path(name, launches)
     require_native_text(run_dir, name)
+    require_native_aligner(run_dir, name)
     return run_dir, recs, launches, classes
 
 

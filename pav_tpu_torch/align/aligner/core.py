@@ -27,7 +27,6 @@ reference picks by backend; ``ladder='accel'`` on a CPU device runs the
 CUDA path's classes on the plain kernel versions.
 """
 
-import collections
 import threading
 
 import numpy as np
@@ -39,6 +38,8 @@ from ...align import cigar as cg
 from ...align.table import ALIGN_COLUMNS, empty_align_table, sort_align_table
 
 from ...ops import affine_dp
+from ...parallel import pools
+from . import hostplan
 from .chain import find_chains
 from .index import build_index
 
@@ -68,6 +69,24 @@ _BREAK_MISMATCH_FRAC = 0.30  # pre-DP: equal-length segment mismatch fraction
 _BREAK_MIN_IDENTITY = 0.45   # post-DP: matched fraction of the longer side
 _MIN_RECORD_ALIGNED = 50     # drop split records with fewer aligned bases
 _MAX_EXTEND = 5000           # semi-global end extension cap per contig end
+_MAX_OVERLAP_FRAC = 0.5      # selection: largest overlap share a chain may have
+_REFINE_K = 21               # unique k-mers that refine a large segment
+_REFINE_MIN_LEN = 512        # ... whose shorter side has at least this many bases,
+_REFINE_MAX_DEPTH = 3        # ... at most this many refinements deep,
+_REFINE_MIN_SPAN = 0.25      # ... where the anchors span this share of a side
+
+
+_SEG_KINDS = {'dp': hostplan.DP, 'break': hostplan.BREAK, 'ext_l': hostplan.EXT_L,
+              'ext_r': hostplan.EXT_R}
+
+
+def _native_params():
+    """The thresholds above as the native planner reads them (aligner.cpp's
+    Params), read at each call."""
+    return np.array([_DIRECT_MISMATCH_FRAC, _BREAK_MIN_LEN, _BREAK_MISMATCH_FRAC,
+                     _BREAK_MIN_IDENTITY, _MIN_RECORD_ALIGNED, _MAX_EXTEND, _REFINE_K,
+                     _MAX_OVERLAP_FRAC, _REFINE_MIN_LEN, _REFINE_MAX_DEPTH, _REFINE_MIN_SPAN],
+                    dtype=np.float64)
 
 
 def _trim_ext_runs(lens, ops, scoring, reversed_frame, lq, lr):
@@ -111,27 +130,37 @@ def _trim_ext_runs(lens, ops, scoring, reversed_frame, lq, lr):
     return kept + rem
 
 
+def _ladder_cols(x, ladder):
+    """The first step of ``ladder`` (ascending) at or above each of ``x``, or
+    its last step."""
+    steps = np.asarray(ladder, dtype=np.int64)
+    return steps[np.minimum(np.searchsorted(steps, x, side='left'), len(steps) - 1)]
+
+
+def _pow2_cols(x, lo, hi=1 << 15):
+    """Each of ``x`` rounded up to a power of two in [lo, hi]."""
+    return _ladder_cols(x, [lo << i for i in range((hi // lo).bit_length())])
+
+
 def _bucket_pow2(x, lo=32, hi=1 << 15):
-    v = lo
-    while v < x and v < hi:
-        v <<= 1
-    return v
+    return int(_pow2_cols(x, lo, hi))
+
+
+def _cpu_bucket_cols(m, n):
+    """(m_b, n_b, width_b) arrays on the reference's CPU ladder: fine pow2
+    classes, rows (query) and columns (ref) padded independently, no
+    transposition. Classes up to 256 get a band of 2|m-n| + 17 columns,
+    larger ones of 2|m-n| + 65; a band as wide as the row is full width."""
+    m_b, n_b = _pow2_cols(m, 16), _pow2_cols(n, 16)
+    d = np.abs(m - n)
+    small = np.minimum(_pow2_cols(2 * d + 17, 16) + 1, n_b + 1)
+    large = np.minimum(_pow2_cols(np.minimum(2 * d + _MIN_WIDTH, n + 1), 256) + 1, n_b + 1)
+    return m_b, n_b, np.where(np.maximum(m_b, n_b) <= 256, small, large)
 
 
 def _cpu_bucket(m, n):
-    """(m_b, n_b, width_b) on the reference's CPU ladder: fine pow2 classes,
-    rows (query) and columns (ref) padded independently, no transposition.
-    Classes up to 256 get a band of 2|m-n| + 17 columns, larger ones of
-    2|m-n| + 65; a band as wide as the row is full width."""
-    m_b = _bucket_pow2(m, lo=16)
-    n_b = _bucket_pow2(n, lo=16)
-    if max(m_b, n_b) <= 256:
-        width = 2 * abs(m - n) + 17
-        width_b = min(_bucket_pow2(width, lo=16) + 1, n_b + 1)
-    else:
-        width = min(2 * abs(m - n) + _MIN_WIDTH, n + 1)
-        width_b = min(_bucket_pow2(width, lo=256) + 1, n_b + 1)
-    return m_b, n_b, width_b
+    """``_cpu_bucket_cols`` of one pair."""
+    return tuple(int(v) for v in _cpu_bucket_cols(m, n))
 
 
 def _cpu_shape_batch(m_b, width_b):
@@ -160,46 +189,39 @@ def resolve_ladder(ladder, device):
 _ACCEL_LADDER = (16, 32, 64, 128, 256, 512, 1024, 2048, 8192, 32768)
 
 
-def _bucket_ladder(x, ladder=_ACCEL_LADDER):
-    for v in ladder:
-        if x <= v:
-            return v
-    return ladder[-1]
-
-
 # Largest padded (rows x width) cell count allowed through the full-width
 # kernel: classes above this run banded (escapes break the record).
 _FULL_CELLS_MAX = 1 << 23
 
 
-def _accel_bucket(m, n):
-    """(m_b, n_b, width_b) for the accelerator class ladder.
+def _accel_bucket_cols(m, n):
+    """(m_b, n_b, width_b) arrays for the accelerator class ladder.
 
-    Callers orient segments so m <= n first (_run_segments transposes and
+    Callers orient segments so m <= n first (_run_columns transposes and
     swaps I/D in the result): the DP scan is sequential over rows, so rows =
     the shorter side minimizes scan depth and halves the class count.
 
-    Classes <= 512 and unbalanced classes run full width (exact DP, no
-    band-escape retries). Balanced large classes run a banded window when the
-    segment hugs the diagonal; escapes re-run at full width.
+    Classes <= 512 and unbalanced classes run full width (exact DP on the row
+    kernel, dp_kernels.align_full, with no band-escape retries). Balanced
+    large classes run a banded window when the segment hugs the diagonal
+    (key 512, run at width 513, where 2|m-n| + 65 <= 513; else 2048);
+    escapes re-run at full width. Full width is NOT a fallback for those: a balanced-huge class
+    (e.g. 8192x8193) would write an m x n tape per item. A segment whose
+    optimal path leaves a 2k band either retries at full width when small
+    enough (_run_columns) or becomes an alignment-record break — the same
+    treatment reference aligners give paths that exceed their -r bandwidth
+    (rules/align.snakefile:188), whose SVs the truncation caller recovers.
     """
-    m_b = _bucket_ladder(m)
-    n_b = _bucket_ladder(n)
-    if max(m_b, n_b) <= 2048 or (m_b != n_b
-                                 and m_b * (n_b + 1) <= _FULL_CELLS_MAX):
-        # Full width: exact DP on the row kernel (dp_kernels.align_full).
-        return m_b, n_b, n_b + 1
-    w_need = 2 * abs(m - n) + _MIN_WIDTH
-    if w_need <= 513:
-        return m_b, n_b, 512      # runs at width 513
-    # Widest band. Full width is NOT a fallback here: a balanced-huge class
-    # (e.g. 8192x8193) would write an m x n tape per item. A segment whose
-    # optimal path
-    # leaves a 2k band either retries at full width when small enough
-    # (_run_segments) or becomes an alignment-record break — the same
-    # treatment reference aligners give paths that exceed their -r bandwidth
-    # (rules/align.snakefile:188), whose SVs the truncation caller recovers.
-    return m_b, n_b, 2048
+    m_b, n_b = _ladder_cols(m, _ACCEL_LADDER), _ladder_cols(n, _ACCEL_LADDER)
+    full = (np.maximum(m_b, n_b) <= 2048) | ((m_b != n_b)
+                                             & (m_b * (n_b + 1) <= _FULL_CELLS_MAX))
+    band = np.where(2 * np.abs(m - n) + _MIN_WIDTH <= 513, 512, 2048)
+    return m_b, n_b, np.where(full, n_b + 1, band)
+
+
+def _accel_bucket(m, n):
+    """``_accel_bucket_cols`` of one pair (m <= n)."""
+    return tuple(int(v) for v in _accel_bucket_cols(m, n))
 
 
 def _shape_batch(m_b, width_b, n_b=None, device_type='cuda'):
@@ -234,9 +256,10 @@ class _Segment:
         # sequences reversed so the anchored end sits at position 0).
         self.kind = kind
         self.result = None
-        # Provenance for device-resident gathering: (src_arr, off, len, rev)
-        # describing this exact array as a (possibly reversed) slice of a
-        # host source array uploaded once per run. None -> host-array path.
+        # Provenance: (src_arr, off, len, rev) describing this exact array
+        # as a (possibly reversed) slice of the contig, in the chain's
+        # orientation, or of a chromosome; the plan's windows
+        # (_plan_columns).
         self.qdesc = qdesc
         self.rdesc = rdesc
 
@@ -332,116 +355,363 @@ class Aligner:
         self.device = self.dp.device
         self.ladder = resolve_ladder(ladder, self.device)
         self.index = build_index(ref_store, self.k, self.w, self.device)
+        self._refs = None   # _host_refs
 
     # ------------------------------------------------------------------ align
 
     def align_store(self, qry_store, hap, batch_count=10, min_chain_score=None):
         """Align every contig of a haplotype store; returns the alignment table
-        (trim-none tier; CALL_BATCH/TRIM fields added by finalize_align_table)."""
-        min_score = self.min_chain_score if min_chain_score is None else min_chain_score
+        (trim-none tier; CALL_BATCH/TRIM fields added by finalize_align_table).
 
-        def plan_contig(qry_name):
-            """Seed/chain/select/plan one contig into its own segment list
-            (a task of the planning pool: an ``align.plan_contig`` span)."""
-            prep = prepared.get(qry_name)
-            codes = prep[False] if prep else qry_store.get(qry_name)
-            qlen = len(codes)
-            spans.add(bases=qlen)
-            segments = []
+        Each contig is planned into columns (``hostplan.Plan``) by
+        ``hostplan``'s C++ where its library loads, else by the Python
+        planner (``_plan_python``, whose plan ``_plan_columns`` turns into
+        the same columns). Either way the DP launches are built from the
+        columns (``_run_columns``), and the records are assembled in C++
+        (``_emit_columns``) or in Python (``_emit_python``), with the same
+        table. The ``align.plan_contig`` and ``align.emit`` spans say which
+        path ran (``on=native`` or ``on=python``). On the accelerator ladder
+        the resident buffer is built and uploaded beside the planning, which
+        does not read it."""
+        min_score = self.min_chain_score if min_chain_score is None else min_chain_score
+        handle = hostplan.lib()
+        on = 'python' if handle is None else 'native'
+        names = qry_store.names()
+        contigs = [np.ascontiguousarray(qry_store.get(n), dtype=np.uint8) for n in names]
+        params = _native_params()
+
+        # Accelerator ladder: upload every sequence the plans can slice (ref
+        # chromosomes + forward contigs) once; launches then carry only
+        # window descriptors (a window of a contig's reverse complement reads
+        # its forward span backwards and complemented). The CPU ladder
+        # launches the padded sequences.
+        resident = {}
+        uploader = None
+        if self.ladder == 'accel':
+            def upload():
+                try:
+                    with spans.span('align.resident'):
+                        arrays = [self.ref_store.get(c) for c in self.ref_store.names()]
+                        resident['buf'], resident['base'] = _build_resident_from(
+                            arrays + contigs, self.dp.devices)
+                except BaseException as ex:     # raised below, on this thread
+                    resident['error'] = ex
+            uploader = pools.start_thread(upload)
+
+        def plan_contig(ci):
+            """Seed and chain one contig, then plan it (a task of the planning
+            pool: an ``align.plan_contig`` span): (plan, reverse complement
+            or None, and the Python planner's metas and segments)."""
+            codes = contigs[ci]
+            spans.add(bases=len(codes), on=on)
             with spans.span('align.chains'):
                 chains = find_chains(
                     codes, self.index, max_occ=self.max_occ,
                     max_dist=self.chain_max_dist, max_gap_diff=self.chain_max_gap,
-                    min_chain_score=min_score, device=self.device)
-
-            oriented_cache = dict(prep) if prep else {}
-
-            def oriented(is_rev):
-                if is_rev not in oriented_cache:
-                    oriented_cache[is_rev] = seqcodec.revcomp(codes) if is_rev else codes
-                return oriented_cache[is_rev]
-
-            # Pass 1: primary selection by original-frame query-span overlap.
-            with spans.span('align.select'):
-                accepted, _ = self._select(chains, qlen, [])
-            with spans.span('align.plan_chain'):
-                metas = [
-                    self._plan_chain(c, qry_name, qlen, oriented(c.is_rev), segments)
-                    for c in accepted
-                ]
-
-            # Coverage excluding break segments; pass 2 fills the gaps
-            # (e.g. the inverted core of a bridged inversion).
-            with spans.span('align.select'):
-                covered = []
-                for meta in metas:
-                    covered.extend(self._covered_spans(meta, segments, qlen))
-                remaining = [c for c in chains if c not in accepted]
-                accepted2, _ = self._select(remaining, qlen, covered)
-            with spans.span('align.plan_chain'):
-                for c in accepted2:
-                    metas.append(self._plan_chain(
-                        c, qry_name, qlen, oriented(c.is_rev), segments))
-
-            # Semi-global end extension: chains stop at their terminal anchors,
-            # leaving anchor-free contig tails (e.g. SNV-dense divergence)
-            # unaligned. Extend the outermost chain toward each contig end
-            # (reference aligners extend with Z-drop: minimap2 -z; the
-            # best-prefix trim in _chain_records is the analog).
-            with spans.span('align.extend'):
-                self._plan_end_extensions(metas, segments, qlen, oriented)
-            spans.add(chains=len(metas))
-            return metas, segments
-
-        names = qry_store.names()
-
-        # Accelerator ladder: upload every sequence the plans can slice (ref
-        # chromosomes + forward contigs) once; launches then carry only
-        # window descriptors. The CPU ladder launches the padded sequences.
-        prepared = {}
-        resident = base_map = None
-        rc_map = {}
-        if self.ladder == 'accel':
-            with spans.span('align.resident'):
-                arrays = [self.ref_store.get(c) for c in self.ref_store.names()]
-                for name in names:
-                    codes = qry_store.get(name)
-                    prepared[name] = {False: codes, True: seqcodec.revcomp(codes)}
-                    arrays.append(codes)
-                resident, base_map = _build_resident_from(arrays, self.dp.devices)
-                # Reverse-complement arrays are never uploaded: a window of the
-                # rc contig maps onto the forward buffer with the gather's
-                # reverse+complement flags (halves the resident buffer).
-                for name in names:
-                    fwd = prepared[name][False]
-                    rc_map[id(prepared[name][True])] = (base_map[id(fwd)], len(fwd))
+                    min_chain_score=min_score, device=self.device, columns=True)
+            rc = seqcodec.revcomp(codes) if chains.rev.any() else None
+            if handle is None:
+                metas, segments = self._plan_python(
+                    names[ci], len(codes), chains.chains(),
+                    lambda is_rev: rc if is_rev else codes)
+                plan = self._plan_columns(metas, segments, codes)
+            else:
+                metas = segments = None
+                with spans.span('align.plan_chain', chains=len(chains)):
+                    plan = hostplan.plan_contig(handle, codes, rc, self._host_refs(), chains,
+                                                self.k, params)
+            spans.add(chains=len(plan.chains))
+            return plan, rc, metas, segments
 
         # Contigs are independent until DP batching; the hot pieces (native
-        # sketch/chain, numpy) release the GIL.
-        from ...parallel import pools
-        with spans.span('align.plan') as plan:
+        # sketch/chain, the planner library, numpy) release the GIL.
+        with spans.span('align.plan') as plan_span:
             with pools.Executor('plan', min(4, len(names)),
                                 task_span='align.plan_contig') as pool:
-                results = list(pool.map(plan_contig, names))
+                results = list(pool.map(plan_contig, range(len(names))))
+            plan = hostplan.Plan.join([r[0] for r in results])
+        _account_plan(hap, plan_span.seconds)
+        if uploader is not None:
+            uploader.join()
+            if 'error' in resident:
+                raise resident['error']
 
-            # Merge per-contig segment lists, rebasing part references.
-            chain_meta = []
-            segments = []
-            for metas, segs in results:
-                base = len(segments)
-                for meta in metas:
-                    meta['parts'] = [
-                        (p[0], p[1] + base) if p[0] == 'seg' else p
-                        for p in meta['parts']
-                    ]
-                    chain_meta.append(meta)
-                segments.extend(segs)
-        _account_plan(hap, plan.seconds)
+        with spans.span('align.dp', segments=len(plan.segs)):
+            dp = self._run_columns(plan, contigs, [r[1] for r in results],
+                                   resident.get('buf'), resident.get('base'))
+        with spans.span('align.emit', on=on):
+            if handle is None:
+                return self._emit_python([r[2:] for r in results], *dp, hap)
+            return self._emit_columns(handle, plan, *dp, names, contigs, hap, params)
 
-        with spans.span('align.dp', segments=len(segments)):
-            self._run_segments(segments, resident, base_map, rc_map)
-        with spans.span('align.emit'):
-            return self._emit_table(chain_meta, segments, hap)
+    def _plan_python(self, qry_name, qlen, chains, oriented):
+        """One contig's plan in Python from its chains (``Chain`` objects,
+        best first): (metas, segments). ``oriented(is_rev)`` gives the
+        contig's codes in either orientation."""
+        segments = []
+        # Pass 1: primary selection by original-frame query-span overlap.
+        with spans.span('align.select'):
+            accepted, _ = self._select(chains, qlen, [])
+        with spans.span('align.plan_chain'):
+            metas = [
+                self._plan_chain(c, qry_name, qlen, oriented(c.is_rev), segments)
+                for c in accepted
+            ]
+
+        # Coverage excluding break segments; pass 2 fills the gaps
+        # (e.g. the inverted core of a bridged inversion).
+        with spans.span('align.select'):
+            covered = []
+            for meta in metas:
+                covered.extend(self._covered_spans(meta, segments, qlen))
+            remaining = [c for c in chains if c not in accepted]
+            accepted2, _ = self._select(remaining, qlen, covered)
+        with spans.span('align.plan_chain'):
+            for c in accepted2:
+                metas.append(self._plan_chain(
+                    c, qry_name, qlen, oriented(c.is_rev), segments))
+
+        # Semi-global end extension: chains stop at their terminal anchors,
+        # leaving anchor-free contig tails (e.g. SNV-dense divergence)
+        # unaligned. Extend the outermost chain toward each contig end
+        # (reference aligners extend with Z-drop: minimap2 -z; the
+        # best-prefix trim in _chain_records is the analog).
+        with spans.span('align.extend'):
+            self._plan_end_extensions(metas, segments, qlen, oriented)
+        return metas, segments
+
+    def _plan_columns(self, metas, segments, codes):
+        """The columns (``hostplan.Plan``) of one contig's Python plan, as
+        the native planner gives them: a segment's windows from its
+        descriptors (query source 0 where they slice the forward ``codes``,
+        1 the reverse complement; reference source the chromosome's
+        number)."""
+        chrom_of = {c: i for i, c in enumerate(self.index.chrom_names)}
+        ref_of = {id(self.ref_store.get(c)): i for c, i in chrom_of.items()}
+        chains, part_len, part_op = [], [], []
+        for meta in metas:
+            first = len(part_len)
+            for part in meta['parts']:
+                if part[0] == 'seg':
+                    part_len.append(part[1])
+                    part_op.append(hostplan.SEG)
+                else:
+                    for run_len, op in part[1]:
+                        part_len.append(run_len)
+                        part_op.append(op)
+            chains.append((chrom_of[meta['chrom']], meta['is_rev'], meta['q_start'],
+                           meta['r_start'], meta['q_end'], meta['r_end'], meta['mapq'],
+                           first, len(part_len) - first))
+        segs = [(_SEG_KINDS[seg.kind], seg.qdesc[0] is not codes, *seg.qdesc[1:],
+                 ref_of[id(seg.rdesc[0])], *seg.rdesc[1:]) for seg in segments]
+        return hostplan.Plan(
+            np.array(chains, dtype=np.int64).reshape(-1, len(hostplan.CHAIN_COLS)),
+            np.array(part_len, dtype=np.int64), np.array(part_op, dtype=np.int8),
+            np.array(segs, dtype=np.int64).reshape(-1, len(hostplan.SEG_COLS)))
+
+    def _host_refs(self):
+        """The reference's chromosomes as contiguous uint8 codes, by the
+        index's chromosome numbers (kept for the native planner and the CPU
+        ladder's pairs)."""
+        if self._refs is None:
+            self._refs = [np.ascontiguousarray(self.ref_store.get(c), dtype=np.uint8)
+                          for c in self.index.chrom_names]
+        return self._refs
+
+    def _windows(self, plan, contigs, base_map):
+        """[segments, 6] int32 gather windows (qoff, qlen, qflags, roff,
+        rlen, rflags) into the resident buffer (flags bit0 reads the window
+        reversed, bit1 complements). Reverse-complement arrays are never
+        uploaded: a window of a contig's reverse complement, rc[off:off+ln]
+        read forward, equals the forward window at L-off-ln gathered
+        reversed and complemented; reading it backwards cancels the
+        reversal (complement only)."""
+        qbase = np.array([base_map[id(c)] for c in contigs], dtype=np.int64)
+        clen = np.array([len(c) for c in contigs], dtype=np.int64)
+        rbase = np.array([base_map[id(self.ref_store.get(c))] for c in self.index.chrom_names],
+                         dtype=np.int64)
+        tig = plan.seg_contig
+        qoff, qlen, qrev = plan.col('qoff'), plan.col('qlen'), plan.col('qrev')
+        fwd = plan.col('qsrc') == 0
+        out = np.empty((len(tig), 6), dtype=np.int64)
+        out[:, 0] = np.where(fwd, qbase[tig] + qoff, qbase[tig] + clen[tig] - qoff - qlen)
+        out[:, 1] = qlen
+        out[:, 2] = np.where(fwd, qrev, np.where(qrev == 1, 2, 3))
+        out[:, 3] = rbase[plan.col('rsrc')] + plan.col('roff')
+        out[:, 4] = plan.col('rlen')
+        out[:, 5] = plan.col('rrev')
+        return out.astype(np.int32)
+
+    def _pairs(self, plan, contigs, rcs, seg_ids):
+        """(q, r) code arrays of segments ``seg_ids`` (the CPU ladder's
+        launches, which carry the sequences)."""
+        segs, tig = plan.segs, plan.seg_contig
+        refs = self._host_refs()
+        pairs = []
+        for i in seg_ids.tolist():
+            _, qsrc, qoff, qlen, qrev, rsrc, roff, rlen, rrev = segs[i].tolist()
+            src = rcs[tig[i]] if qsrc else contigs[tig[i]]
+            q = src[qoff:qoff + qlen]
+            r = refs[rsrc][roff:roff + rlen]
+            pairs.append((q[::-1] if qrev else q, r[::-1] if rrev else r))
+        return pairs
+
+    def _run_columns(self, plan, contigs, rcs, resident, base_map):
+        """Bucket a plan's DP segments into padded classes and run batched
+        kernel calls on the aligner's ladder (see the module docstring),
+        each launch's items built as one array.
+
+        :return: (kind, res_off, res_n, lens, ops): each segment's kind (a
+            retry too large for the full-width kernel turns into a break),
+            its DP result as the runs ``lens/ops[res_off:res_off+res_n]``
+            (res_n -1 for a break) in the original frame."""
+        accel = self.ladder == 'accel'
+        band = 'wave' if accel else 'row'
+        kind = plan.col('kind').copy()
+        m_all, n_all = plan.col('qlen'), plan.col('rlen')
+        trans = np.zeros(len(kind), dtype=bool)
+        live = np.nonzero(kind != hostplan.BREAK)[0]
+        m, n = m_all[live], n_all[live]
+        if accel:
+            # Segments run transposed when the query side is longer: global
+            # DP is symmetric under (q<->r, I<->D), the DP is sequential
+            # over rows, and rows = the shorter side minimizes its depth.
+            # The transpose is a per-ITEM flag, not a class key: both
+            # directions share a launch.
+            trans[live] = m > n
+            keys = _accel_bucket_cols(np.minimum(m, n), np.maximum(m, n))
+        else:
+            keys = _cpu_bucket_cols(m, n)
+        buckets = _group_by_key(live, keys)
+        if accel:
+            # Fold classes whose item count is far below their batch cap
+            # into a wider neighbor (full width stays exact).
+            buckets = _coalesce_buckets(buckets, join=lambda x, y: np.concatenate([x, y]))
+        windows = self._windows(plan, contigs, base_map) if resident is not None else None
+        swap = [3, 4, 5, 0, 1, 2]
+
+        def launch(chunk, width_b, m_b, n_b, pad_batch):
+            if windows is not None:
+                w = windows[chunk]
+                items = np.where(trans[chunk][:, None], w[:, swap], w)
+                return self.dp.align_batch_refs_async(
+                    items, width=width_b, pad_to=(m_b, n_b), pad_batch=pad_batch,
+                    resident=resident, band=band)
+            return self.dp.align_batch_async(
+                self._pairs(plan, contigs, rcs, chunk), width=width_b, pad_to=(m_b, n_b),
+                pad_batch=pad_batch, band=band)
+
+        def run(classes, width_of):
+            """Launch every class's chunks, each capped so in-flight DP
+            state stays bounded, then resolve them together (transfers
+            overlap later launches): (segment ids, results) in launch
+            order."""
+            launches = []
+            for key, entries in sorted(classes.items()):
+                m_b, n_b = key[0], key[1]
+                width_b = width_of(key)
+                batch = self._shape_batch(m_b, width_b, n_b if len(key) == 3 else None)
+                for lo in range(0, len(entries), batch):
+                    chunk = entries[lo:lo + batch]
+                    launches.append((chunk, launch(chunk, width_b, m_b, n_b,
+                                                   self._batch_pad(batch, len(chunk)))))
+            results = _resolve_handles([h for _, h in launches])
+            ids = [c for c, _ in launches]
+            return (np.concatenate(ids) if ids else np.zeros(0, np.int64),
+                    [r for rs in results for r in rs])
+
+        got_ids, got = run(buckets, lambda key: key[2])
+        failed = np.fromiter((r is None for r in got), dtype=bool, count=len(got))
+        done_ids = [got_ids[~failed]]
+        done = [r for r in got if r is not None]
+        retry = got_ids[failed]
+        if len(retry):
+            # Band-escaping paths (e.g. opposing gaps) re-run at full width,
+            # grouped into the same canonical classes (width = n_b + 1). On
+            # the accelerator ladder, classes too large for the full-width
+            # kernel (see _FULL_CELLS_MAX) become record breaks instead: the
+            # path wandered >2k off-diagonal through a multi-kb block, which
+            # reference aligners also split. The CPU ladder (as the
+            # reference's CPU branch) retries every escape at full width.
+            m, n = m_all[retry], n_all[retry]
+            if accel:
+                m_b = _ladder_cols(np.minimum(m, n), _ACCEL_LADDER)
+                n_b = _ladder_cols(np.maximum(m, n), _ACCEL_LADDER)
+                big = m_b * (n_b + 1) > _FULL_CELLS_MAX
+                kind[retry[big]] = hostplan.BREAK
+                retry, m_b, n_b = retry[~big], m_b[~big], n_b[~big]
+            else:
+                m_b, n_b = _pow2_cols(m, 16), _pow2_cols(n, 16)
+            regroup = _group_by_key(retry, (m_b, n_b))
+            ids, results = run(regroup, lambda key: key[1] + 1)
+            done_ids.append(ids)
+            done.extend(results)
+
+        ids = np.concatenate(done_ids)
+        counts = np.fromiter((len(r[0]) for r in done), dtype=np.int64, count=len(done))
+        lens = (np.concatenate([r[0] for r in done]).astype(np.int32) if done
+                else np.zeros(0, np.int32))
+        ops = (np.concatenate([r[1] for r in done]).astype(np.int8) if done
+               else np.zeros(0, np.int8))
+        t_run = np.repeat(trans[ids], counts)
+        ops = np.where(t_run & (ops == cg.I), cg.D,
+                       np.where(t_run & (ops == cg.D), cg.I, ops)).astype(np.int8)
+        res_off = np.zeros(len(kind), dtype=np.int64)
+        res_n = np.full(len(kind), -1, dtype=np.int64)
+        res_off[ids] = np.cumsum(counts) - counts
+        res_n[ids] = counts
+        return kind, res_off, res_n, lens, ops
+
+    def _emit_columns(self, handle, plan, kind, res_off, res_n, lens, ops, names, contigs,
+                      hap, params):
+        """The alignment table of a haplotype's plan and DP results
+        (``_run_columns``), the records assembled in one native pass: the
+        post-DP break test and ``_chain_records`` of every chain."""
+        qlens = np.array([len(c) for c in contigs], dtype=np.int64)
+        tig = plan.contig
+        rev = plan.col('rev')
+        chains = np.stack([plan.col('q_start'), plan.col('r_start'), qlens[tig], rev,
+                           plan.col('part0'), plan.col('n_parts')], axis=1)
+        segs = np.stack([kind, plan.col('qlen'), plan.col('rlen'), res_off, res_n], axis=1)
+        sc = self.scoring
+        scoring = [sc['match'], sc['mismatch'], *sc['gap_open'], *sc['gap_ext']]
+        rows, cigars = hostplan.emit_records(handle, chains, plan.part_len, plan.part_op,
+                                             segs, lens, ops, scoring, params)
+        if not len(rows):
+            df = empty_align_table()
+        else:
+            ci = rows[:, 0]
+            is_rev = rev[ci].astype(bool)
+            df = pd.DataFrame({
+                '#CHROM': np.array(self.index.chrom_names, dtype=object)[plan.col('chrom')[ci]],
+                'POS': rows[:, 1], 'END': rows[:, 2], 'INDEX': -1,
+                'QRY_ID': np.array(names, dtype=object)[tig[ci]],
+                'QRY_POS': rows[:, 3], 'QRY_END': rows[:, 4], 'QRY_LEN': qlens[tig[ci]],
+                'RG': 'NA', 'AO': 'NA', 'MAPQ': plan.col('mapq')[ci], 'REV': is_rev,
+                'FLAGS': np.where(is_rev, '0x0010', '0x0000').astype(object),
+                'HAP': hap, 'CIGAR': np.array(cigars, dtype=object)}, columns=ALIGN_COLUMNS)
+        df['INDEX'] = np.arange(df.shape[0])
+        return sort_align_table(df)
+
+    def _emit_python(self, planned, kind, res_off, res_n, lens, ops, hap):
+        """``_emit_columns`` in Python, from each contig's (metas, segments)
+        of ``_plan_python``: the DP results put back on the segments, the
+        post-DP break test, then ``_emit_table``."""
+        chain_meta, segments = [], []
+        for metas, segs in planned:
+            base = len(segments)
+            for meta in metas:
+                meta['parts'] = [(p[0], p[1] + base) if p[0] == 'seg' else p
+                                 for p in meta['parts']]
+                chain_meta.append(meta)
+            segments.extend(segs)
+        for seg, k, off, n in zip(segments, kind.tolist(), res_off.tolist(), res_n.tolist()):
+            if k == hostplan.BREAK:
+                seg.kind = 'break'
+            elif n >= 0:
+                seg.result = (lens[off:off + n], ops[off:off + n])
+        _post_dp_breaks(segments)
+        return self._emit_table(chain_meta, segments, hap)
 
     # -------------------------------------------------------------- selection
 
@@ -453,7 +723,7 @@ class Aligner:
             return qlen - hi, qlen - lo
         return lo, hi
 
-    def _select(self, chains, qlen, covered, max_overlap_frac=0.5):
+    def _select(self, chains, qlen, covered, max_overlap_frac=_MAX_OVERLAP_FRAC):
         """Greedy best-score-first selection of chains whose original-frame
         query spans overlap accepted+covered spans by < max_overlap_frac."""
         spans = _coalesce_spans(list(covered))
@@ -765,7 +1035,7 @@ class Aligner:
                 return
             if lq >= _BREAK_MIN_LEN and n_mism >= _BREAK_MISMATCH_FRAC * lq:
                 # Effectively unalignable (Z-drop analog): break the record here.
-                seg = _Segment(sq, sr, kind='break')
+                seg = _Segment(sq, sr, kind='break', qdesc=qd, rdesc=rd)
                 parts.append(('seg', len(segments)))
                 segments.append(seg)
                 return
@@ -773,15 +1043,13 @@ class Aligner:
         # Large balanced segments (SV clusters between minimizer anchors):
         # re-anchor with unique-k-mer (MUM-style) matches and recurse, turning
         # one quadratic DP into exact runs + small sub-DPs.
-        if depth < 3 and min(lq, lr) >= 512:
+        if depth < _REFINE_MAX_DEPTH and min(lq, lr) >= _REFINE_MIN_LEN:
             if self._refine_segment(sq, sr, parts, segments, depth, qd, rd):
                 return
 
         seg = _Segment(sq, sr, qdesc=qd, rdesc=rd)
         parts.append(('seg', len(segments)))
         segments.append(seg)
-
-    _REFINE_K = 21
 
     def _refine_segment(self, sq, sr, parts, segments, depth, qd=None, rd=None):
         """Split a big segment along collinear unique-k-mer anchors.
@@ -791,7 +1059,7 @@ class Aligner:
         """
         from ... import kmer as km
 
-        k2 = self._REFINE_K
+        k2 = _REFINE_K
         qk, qv = km.kmer_codes(sq, k2)
         rk, rv = km.kmer_codes(sr, k2)
         q_idx = np.nonzero(qv)[0]
@@ -823,7 +1091,8 @@ class Aligner:
         aq, ar = aq[lis_idx], ar[lis_idx]
 
         # Require the anchors to meaningfully cover the segment.
-        if (aq[-1] - aq[0]) < 0.25 * len(sq) and (ar[-1] - ar[0]) < 0.25 * len(sr):
+        if ((aq[-1] - aq[0]) < _REFINE_MIN_SPAN * len(sq)
+                and (ar[-1] - ar[0]) < _REFINE_MIN_SPAN * len(sr)):
             return False
 
         # Stitch: leading sub-segment, anchor runs + gaps, trailing sub-segment.
@@ -860,181 +1129,27 @@ class Aligner:
 
     # ------------------------------------------------------------ DP batching
 
-    def _run_segments(self, segments, resident=None, base_map=None,
-                      rc_map=None):
-        """Bucket DP jobs into padded classes and run batched kernel calls
-        on the aligner's ladder (see the module docstring)."""
-        accel = self.ladder == 'accel'
-        band = 'wave' if accel else 'row'
-        buckets = collections.defaultdict(list)
-        for si, seg in enumerate(segments):
-            if seg.kind == 'break':
-                continue
-            m, n = len(seg.q), len(seg.r)
-            if not accel:
-                buckets[_cpu_bucket(m, n)].append((si, False))
-                continue
-            # Segments run transposed when the query side is longer: global
-            # DP is symmetric under (q<->r, I<->D), the DP is sequential
-            # over rows, and rows = the shorter side minimizes its depth.
-            # The transpose is a per-ITEM flag, not a bucket key — both
-            # directions share a launch.
-            t = m > n
-            a, b = (n, m) if t else (m, n)
-            buckets[_accel_bucket(a, b)].append((si, t))
+    def _batch_pad(self, batch, n_items):
+        """The padded batch of a launch of ``n_items`` in a class whose cap
+        is ``batch``."""
+        if self.ladder != 'accel':
+            # CPU ladder: the batch padded up to a power of 4 (>= 8).
+            b_pad = 8
+            while b_pad < n_items:
+                b_pad *= 4
+            return min(batch, b_pad)
+        # pow2-down to >= 50% batch fill (floor 8): batch padding must
+        # not reintroduce the padded cells the fine classes removed.
+        b = batch
+        while b >= 2 * max(n_items, 4) and b > 8:
+            b //= 2
+        return max(b, 8)
 
-        if accel:
-            # Fold classes whose item count is far below their batch cap
-            # into a wider neighbor (full width stays exact).
-            buckets = _coalesce_buckets(buckets)
-
-        def batch_pad(batch, n_items):
-            if not accel:
-                # CPU ladder: the batch padded up to a power of 4 (>= 8).
-                b_pad = 8
-                while b_pad < n_items:
-                    b_pad *= 4
-                return min(batch, b_pad)
-            # pow2-down to >= 50% batch fill (floor 8): batch padding must
-            # not reintroduce the padded cells the fine classes removed.
-            b = batch
-            while b >= 2 * max(n_items, 4) and b > 8:
-                b //= 2
-            return max(b, 8)
-
-        def shape_batch(m_b, width_b, n_b=None):
-            if not accel:
-                return _cpu_shape_batch(m_b, width_b)
-            return _shape_batch(m_b, width_b, n_b, self.device.type)
-
-        # Device-resident sources (accelerator ladder): every host array the
-        # segments slice is uploaded ONCE; launches carry only (offset, len,
-        # flags) descriptors and the padded windows are gathered on the
-        # device.
-        if accel and resident is None:
-            with spans.span('align.resident'):
-                resident, base_map = _build_resident(segments, self.dp.devices)
-
-        def locate(d):
-            """Descriptor -> (resident_offset, len, gather_flags) or None.
-
-            Windows of a reverse-complement source remap onto its forward
-            buffer span: src_rc[off:off+ln] read forward equals the forward
-            window at L-off-ln gathered reversed+complemented; reading it
-            backwards cancels the reversal (complement only)."""
-            src, off, ln, rev = d
-            base = base_map.get(id(src))
-            if base is not None:
-                return (base + off, ln, 1 if rev else 0)
-            rc = rc_map.get(id(src)) if rc_map else None
-            if rc is None:
-                return None
-            fwd_base, src_len = rc
-            return (fwd_base + src_len - off - ln, ln, 2 | (0 if rev else 1))
-
-        def launch_chunk(chunk, width_b, m_b, n_b, pad_batch):
-            """chunk: list of (segment_index, transposed) entries."""
-            if resident is not None:
-                items = []
-                for i, t in chunk:
-                    seg = segments[i]
-                    qd, rd = seg.qdesc, seg.rdesc
-                    if qd is None or rd is None:
-                        items = None
-                        break
-                    if t:
-                        qd, rd = rd, qd
-                    ql = locate(qd)
-                    rl = locate(rd)
-                    if ql is None or rl is None:
-                        items = None
-                        break
-                    items.append(ql + rl)
-                if items is not None:
-                    return self.dp.align_batch_refs_async(
-                        items, width=width_b, pad_to=(m_b, n_b),
-                        pad_batch=pad_batch, resident=resident, band=band)
-            pairs = [(segments[i].r, segments[i].q) if t
-                     else (segments[i].q, segments[i].r) for i, t in chunk]
-            return self.dp.align_batch_async(
-                pairs, width=width_b, pad_to=(m_b, n_b), pad_batch=pad_batch,
-                band=band)
-
-        # Two-phase: launch every bucket first, then collect — transfers
-        # overlap later launches.
-        launches = []
-        for (m_b, n_b, width_b), entries in sorted(buckets.items()):
-            # Batch cap per shape, sized so in-flight DP state stays bounded.
-            batch = shape_batch(m_b, width_b, n_b)
-            for lo in range(0, len(entries), batch):
-                chunk = entries[lo:lo + batch]
-                handle = launch_chunk(chunk, width_b, m_b, n_b,
-                                      batch_pad(batch, len(chunk)))
-                launches.append((chunk, handle))
-
-        retry = []
-        all_results = _resolve_handles([h for _, h in launches])
-        for (chunk, handle), results in zip(launches, all_results):
-            for (i, t), res in zip(chunk, results):
-                if res is None:
-                    retry.append(i)
-                else:
-                    segments[i].result = _swap_ins_del(res) if t else res
-        if retry:
-            # Band-escaping paths (e.g. opposing gaps) re-run at full width,
-            # grouped into the same canonical classes (width = n_b + 1). On
-            # the accelerator ladder, classes too large for the full-width
-            # kernel (see _FULL_CELLS_MAX) become record breaks instead: the
-            # path wandered >2k off-diagonal through a multi-kb block, which
-            # reference aligners also split. The CPU ladder (as the
-            # reference's CPU branch) retries every escape at full width.
-            regroup = collections.defaultdict(list)
-            for i in retry:
-                seg = segments[i]
-                m, n = len(seg.q), len(seg.r)
-                t = accel and m > n
-                if t:
-                    m, n = n, m
-                if accel:
-                    m_b = _bucket_ladder(m)
-                    n_b = _bucket_ladder(n)
-                    if m_b * (n_b + 1) > _FULL_CELLS_MAX:
-                        segments[i].kind = 'break'
-                        continue
-                else:
-                    m_b = _bucket_pow2(m, lo=16)
-                    n_b = _bucket_pow2(n, lo=16)
-                regroup[(m_b, n_b)].append((i, t))
-            # Two-phase like the main pass: launch every retry class, then
-            # resolve together.
-            retry_launches = []
-            for (m_b, n_b), entries in sorted(regroup.items()):
-                batch = shape_batch(m_b, n_b + 1)
-                for lo in range(0, len(entries), batch):
-                    chunk = entries[lo:lo + batch]
-                    handle = launch_chunk(chunk, n_b + 1, m_b, n_b,
-                                          batch_pad(batch, len(chunk)))
-                    retry_launches.append((chunk, handle))
-            for (chunk, handle), results in zip(
-                    retry_launches,
-                    _resolve_handles([h for _, h in retry_launches])):
-                for (i, t), res in zip(chunk, results):
-                    segments[i].result = _swap_ins_del(res) if t else res
-
-        # Post-DP break detection: long segments that still aligned terribly.
-        # Extension segments are exempt — their best-prefix trim already drops
-        # whatever failed to align.
-        for seg in segments:
-            if seg.kind != 'dp' or seg.result is None:
-                continue
-            # Only balanced segments can break: an unbalanced segment is a clean
-            # large indel and must stay inline (reference aligners inline these
-            # within the -r bandwidth: rules/align.snakefile:188).
-            if min(len(seg.q), len(seg.r)) >= _BREAK_MIN_LEN:
-                lens, ops = seg.result
-                matched = int(np.sum(lens[ops == cg.EQ]))
-                if matched < _BREAK_MIN_IDENTITY * min(len(seg.q), len(seg.r)):
-                    seg.kind = 'break'
+    def _shape_batch(self, m_b, width_b, n_b=None):
+        """The batch cap of a class on the aligner's ladder."""
+        if self.ladder != 'accel':
+            return _cpu_shape_batch(m_b, width_b)
+        return _shape_batch(m_b, width_b, n_b, self.device.type)
 
     # ----------------------------------------------------------------- output
 
@@ -1155,6 +1270,23 @@ class Aligner:
         return records
 
 
+def _post_dp_breaks(segments):
+    """Post-DP break detection: long segments that still aligned terribly
+    become breaks. Extension segments are exempt — their best-prefix trim
+    already drops whatever failed to align."""
+    for seg in segments:
+        if seg.kind != 'dp' or seg.result is None:
+            continue
+        # Only balanced segments can break: an unbalanced segment is a clean
+        # large indel and must stay inline (reference aligners inline these
+        # within the -r bandwidth: rules/align.snakefile:188).
+        if min(len(seg.q), len(seg.r)) >= _BREAK_MIN_LEN:
+            lens, ops = seg.result
+            matched = int(np.sum(lens[ops == cg.EQ]))
+            if matched < _BREAK_MIN_IDENTITY * min(len(seg.q), len(seg.r)):
+                seg.kind = 'break'
+
+
 def _lis_indices(arr):
     """Indices of a longest strictly-increasing subsequence (O(n log n))."""
     arr = np.asarray(arr)
@@ -1184,7 +1316,7 @@ def _lis_indices(arr):
     return np.array(out[::-1], dtype=np.int64)
 
 
-def _coalesce_buckets(buckets):
+def _coalesce_buckets(buckets, join=list.__add__):
     """Fold tiny full-width accelerator classes into close wider neighbors.
 
     Every launch costs a fixed round trip on latency-bound device links, so
@@ -1194,7 +1326,8 @@ def _coalesce_buckets(buckets):
     fold put 4280 small items into a 2049-wide class and padded compute
     became 90%+ of DP resolve time). Part-full classes above the item
     threshold launch their own pow4-down quantized batch instead (see
-    batch_pad in _run_segments).
+    Aligner._batch_pad). ``join(a, b)`` appends a class's entries
+    to another's (lists by default).
     """
     changed = True
     while changed:
@@ -1214,36 +1347,30 @@ def _coalesce_buckets(buckets):
             if not cands:
                 continue
             tgt = min(cands, key=lambda k: (k[0], k[1]))
-            buckets[tgt].extend(entries)
+            buckets[tgt] = join(buckets[tgt], entries)
             del buckets[key]
             changed = True
             break
     return buckets
 
 
-def _build_resident(segments, devices):
-    """Concatenate every source array referenced by segment descriptors into
-    one int8 buffer, copied to each of ``devices``.
-
-    :return: ({device: tensor}, {id(src): base_offset}) or (None, None) when
-        no segment carries descriptors.
-    """
-    srcs = []
-    seen = set()
-    for seg in segments:
-        if seg.kind == 'break':
-            continue
-        for d in (seg.qdesc, seg.rdesc):
-            if d is None or id(d[0]) in seen:
-                continue
-            seen.add(id(d[0]))
-            srcs.append(d[0])
-    return _build_resident_from(srcs, devices)
+def _group_by_key(ids, keys):
+    """{key tuple: the ``ids`` of that key, in order} for parallel key
+    arrays ``keys``."""
+    if not len(ids):
+        return {}
+    table = np.stack(keys, axis=1)
+    uniq, inverse = np.unique(table, axis=0, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    order = np.argsort(inverse, kind='stable')
+    bounds = np.searchsorted(inverse[order], np.arange(len(uniq) + 1))
+    return {tuple(int(v) for v in key): ids[order[bounds[i]:bounds[i + 1]]]
+            for i, key in enumerate(uniq)}
 
 
 def _build_resident_from(arrays, devices):
-    """Resident buffer from an explicit source-array list (see
-    _build_resident): the plain int8 codes (0-4) of every distinct array,
+    """The resident buffer of the accelerator ladder's gathers: the plain
+    int8 codes (0-4) of every distinct array of ``arrays``,
     concatenated once on the host and copied to each of ``devices`` (the
     DP mesh's devices get replicas, as the reference replicates the buffer
     over its mesh). Gathers clamp into [0, total) and mask every position
@@ -1270,14 +1397,6 @@ def _build_resident_from(arrays, devices):
         host = torch.from_numpy(buf)
         resident = {torch.device(d): host.to(d) for d in devices}
     return resident, base_map
-
-
-def _swap_ins_del(res):
-    """Map a transposed DP result back to the original frame (I <-> D)."""
-    lens, ops = res
-    swapped = np.where(ops == cg.I, cg.D,
-                       np.where(ops == cg.D, cg.I, ops)).astype(np.int8)
-    return lens, swapped
 
 
 def _coalesce_spans(spans):

@@ -299,7 +299,8 @@ class BandedAligner:
                                resident=None, band='wave'):
         """Resident launch: like align_batch_async, but each item is a
         (qoff, qlen, qflags, roff, rlen, rflags) window into ``resident``,
-        gathered on the device. flags bit0 reads the window reversed, bit1
+        gathered on the device: a list of such tuples, or one [B, 6] integer
+        array of them. flags bit0 reads the window reversed, bit1
         complements; together they express reverse-complement windows.
 
         :param resident: {torch.device: int8 tensor} from

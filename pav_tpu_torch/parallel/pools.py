@@ -9,7 +9,10 @@ start) and run are recorded. With ``task_span``, each task is a span of that
 name whose WAIT_NS is its wait. Otherwise each use of the pool (a ``with``
 block, or one ``map`` outside a block) is one row, ``pool:<name>``, that sums
 its tasks (``spans.PoolUse``), so the rows do not grow with the tasks. A pool
-of one worker runs its tasks in the caller.
+of one worker runs its tasks in the caller. ``map(..., caller_runs=True)``
+hands the pool only as many tasks as it has idle workers, at most all but
+the last, and runs the rest in the caller (with no queue wait), so a
+caller never waits behind other callers' tasks for work it can do itself.
 
 ``inline()`` runs every pool's tasks in the calling thread while its block
 runs: the results are the same, without the overlap of the tasks. Tests use
@@ -57,6 +60,7 @@ class Executor:
         self._pool = None
         self._use = None
         self._lock = threading.Lock()
+        self._busy = 0      # tasks submitted to the threads and not yet done
 
     def __enter__(self):
         self._use = spans.PoolUse('pool:' + self.name)
@@ -72,14 +76,20 @@ class Executor:
     def submit(self, fn, *args, **kwargs):
         return self._submit(self._use, fn, args, kwargs)
 
-    def map(self, fn, *iterables):
+    def map(self, fn, *iterables, caller_runs=False):
         """The results of ``fn`` over the arguments, in order, once all are
         done (the first failure is raised, and the tasks not started are
-        cancelled)."""
+        cancelled). ``caller_runs``: see the module docstring."""
         use = self._use or spans.PoolUse('pool:' + self.name)
-        futures = [self._submit(use, fn, args, {}) for args in zip(*iterables)]
+        calls = list(zip(*iterables))
+        n_pool = len(calls)
+        if caller_runs:
+            with self._lock:
+                n_pool = max(0, min(len(calls) - 1, self._workers - self._busy))
+        futures = [self._submit(use, fn, args, {}) for args in calls[:n_pool]]
         try:
-            return iter([f.result() for f in futures])
+            mine = [self._run(use, None, fn, args, {}) for args in calls[n_pool:]]
+            return iter([f.result() for f in futures] + mine)
         except BaseException:
             for f in futures:
                 f.cancel()
@@ -92,7 +102,11 @@ class Executor:
         call = (contextvars.copy_context().run, self._run, use, time.time_ns(),
                 fn, args, kwargs)
         if self._workers > 1 and not inlined():
-            return self._executor().submit(*call)
+            with self._lock:
+                self._busy += 1
+            fut = self._executor().submit(*call)
+            fut.add_done_callback(self._done)
+            return fut
         fut = Future()
         try:
             fut.set_result(call[0](*call[1:]))
@@ -107,8 +121,14 @@ class Executor:
                                                 thread_name_prefix=f'pav-{self.name}')
             return self._pool
 
+    def _done(self, _fut):
+        with self._lock:
+            self._busy -= 1
+
     def _run(self, use, submitted_ns, fn, args, kwargs):
-        wait_ns = time.time_ns() - submitted_ns
+        """Run one task, its queue wait the time since ``submitted_ns`` (none
+        for a task the caller runs itself: ``submitted_ns`` None)."""
+        wait_ns = 0 if submitted_ns is None else time.time_ns() - submitted_ns
         if self.task_span is not None:
             with spans.span(self.task_span, wait_ns=wait_ns):
                 return fn(*args, **kwargs)

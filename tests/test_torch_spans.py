@@ -121,6 +121,18 @@ def test_plan_contig_tasks_name_their_submitter(run):
     assert len(h2) == 2 and all(t['TID'] != by_id[t['PARENT']]['TID'] for t in h2)
 
 
+def test_aligner_spans_say_the_native_path_ran(run):
+    """Each contig's planning (``align.plan_contig``) and each haplotype's
+    record assembly (``align.emit``) carry ``on``: the native path here,
+    where g++ builds the planner library."""
+    rows = run['rows']
+    plans = [r for r in rows if r['NAME'] == 'align.plan_contig']
+    emits = [r for r in rows if r['NAME'] == 'align.emit']
+    assert len(plans) == len(run['lengths']) and len(emits) == 2
+    assert sorted(r['LABEL'] for r in emits) == ['S1/h1', 'S1/h2']
+    assert all(_counts(r)['on'] == 'native' for r in plans + emits)
+
+
 def test_plan_s_is_the_plan_span(run):
     rows = run['rows']
     for hap in ('h1', 'h2'):
@@ -417,6 +429,37 @@ def test_pool_use_counts_every_task_under_contention():
     assert len(rows) == 1
     assert rows[0].tasks == 2000 and rows[0].parent == outer.id
     assert all(p is outer for p in parents)
+
+
+def test_caller_runs_what_no_idle_worker_takes():
+    """``map(..., caller_runs=True)`` hands a busy pool nothing: every task
+    runs in the calling thread, with no queue wait, and the row counts them
+    all; with idle workers the pool takes all but the last task."""
+    gate = threading.Event()
+    pool = pools.Executor('busy', 2)
+    blockers = [pool.submit(gate.wait) for _ in range(2)]
+    rec = spans.Recorder()
+    me = threading.get_ident()
+    try:
+        with rec.active():
+            ran = list(pool.map(lambda i: (i, threading.get_ident()), range(5),
+                                caller_runs=True))
+    finally:
+        gate.set()
+        for b in blockers:
+            b.result()
+    assert ran == [(i, me) for i in range(5)]
+    row = [s for s in rec.records if s.name == 'pool:busy'][0]
+    assert row.tasks == 5 and row.wait_ns == 0
+    # A finished task's worker counts as idle only once its future's
+    # callbacks have run, which may be after result() returned.
+    deadline = time.monotonic() + 10
+    while pool._busy and time.monotonic() < deadline:
+        time.sleep(0.001)
+    assert pool._busy == 0
+    ran = list(pool.map(lambda i: (i, threading.get_ident()), range(3), caller_runs=True))
+    assert [i for i, _ in ran] == [0, 1, 2] and ran[2][1] == me
+    assert all(t != me for _, t in ran[:2])
 
 
 def test_plan_stats_lose_no_update_under_contention():
